@@ -1,12 +1,13 @@
 """ORB2-class feature extractor: FAST-9 + grid NMS + rBRIEF over a pyramid
 (port of ``pyslam_tpu/features/orb2.py:113-229``).
 
-Per image: pyramid, per-level FAST score with 3x3 NMS (the CUDA kernel of
-``ops.fast.fast_nms`` on the card), per-cell top-k distribution with
-per-level quotas, orientation and steered BRIEF.  Output shapes are fixed at
-``num_features`` slots with a validity mask.  A stereo pair goes through
-every stage as one batch of two images, so each pyramid level costs one
-kernel launch for both images; the left/right row match follows.
+Per image: pyramid, FAST score with 3x3 NMS for every level (one launch of
+the CUDA kernel of ``ops.fast.fast_nms_pyramid`` on the card), per-cell
+top-k distribution with per-level quotas, orientation and steered BRIEF.
+Output shapes are fixed at ``num_features`` slots with a validity mask.  A
+stereo pair goes through every stage as one batch of two images, so a
+frame costs one kernel launch for all levels of both images; the left/right
+row match follows.
 """
 
 from __future__ import annotations
@@ -69,13 +70,15 @@ def extract_pyramid(pyr: list[torch.Tensor], num_features: int, scale: float,
     b = pyr[0].shape[0]
     num_levels = len(pyr)
     quotas = level_quotas(num_features, num_levels, scale)
+    pyr = [p.contiguous() for p in pyr]
+    scores = fast.fast_nms_pyramid(pyr, fast_th)   # one kernel launch for all levels
     outs = []
     for lv in range(num_levels):
         quota = quotas[lv]
         if quota == 0:
             continue
-        lv_img = pyr[lv].contiguous()
-        score = fast.fast_nms(lv_img, fast_th)
+        lv_img = pyr[lv]
+        score = scores[lv]
         xy, resp, valid = nms.grid_topk_keypoints(score, cell=cell, per_cell=per_cell,
                                                   max_out=quota)
         blurred = image_ops.gaussian_blur(lv_img, sigma=2.0, radius=3)
@@ -121,11 +124,13 @@ def stereo_match(fl: FeatureData, fr: FeatureData, bf: float, max_disp: float,
 
 class ORB2Extractor:
     """Callable extractor with the reference's ORB2 configuration surface.
-    ``device`` is where the images are uploaded and every stage runs."""
+    ``device`` is where the images are uploaded and every stage runs: the
+    card unless the caller asks for another."""
 
     def __init__(self, num_features: int | None = None, num_levels: int | None = None,
                  scale_factor: float | None = None, fast_threshold: float | None = None,
-                 cell: int = 16, per_cell: int = 6, *, device: torch.device | str):
+                 cell: int = 16, per_cell: int = 6, *,
+                 device: torch.device | str = "cuda"):
         self.num_features = num_features or Parameters.kNumFeatures
         self.num_levels = num_levels or Parameters.kNumLevels
         self.scale_factor = scale_factor or Parameters.kScaleFactor

@@ -63,7 +63,7 @@ class FeatureTrackerConfigs:
 class FeatureTracker:
     """ORB2 extractor on ``device`` with its level scales and variances."""
 
-    def __init__(self, config: FeatureTrackerConfig, device: torch.device | str):
+    def __init__(self, config: FeatureTrackerConfig, *, device: torch.device | str = "cuda"):
         if (config.detector_type != FeatureDetectorTypes.ORB2
                 or config.descriptor_type != FeatureDescriptorTypes.ORB2
                 or config.tracker_type != FeatureTrackerTypes.DES_BF):
@@ -84,7 +84,7 @@ class FeatureTracker:
 
 
 def feature_tracker_factory(config: FeatureTrackerConfig | str = "ORB2", *,
-                            device: torch.device | str) -> FeatureTracker:
+                            device: torch.device | str = "cuda") -> FeatureTracker:
     if isinstance(config, str):
         config = FeatureTrackerConfigs.get(config)
     return FeatureTracker(config, device=device)

@@ -33,7 +33,7 @@ def map_from_tpu_json(d: dict, camera, feature_tracker) -> Map:
     from the keyframe slots, covisibility and spanning tree)."""
     if d.get("format") != "pyslam_tpu_map_v1":
         raise ValueError(f"unsupported map format: {d.get('format')}")
-    m = Map(feature_tracker.device)
+    m = Map(device=feature_tracker.device)
     st = m.points
     pts = d["points"]
     ids = _unb64(pts["ids"])

@@ -1,16 +1,20 @@
 """FAST-9 corner score and strict 3x3 NMS (port of ``pyslam_tpu/ops/fast.py``
 and of the fused Pallas kernel ``pyslam_tpu/ops/pallas_fast.py``).
 
-``fast_nms`` is the one entry point the extractor calls.  On a CUDA tensor
-it launches the hand-written kernel ``csrc/fast_nms.cu`` (built at first
-use) or raises; on a CPU tensor it runs the plain PyTorch version
-``nms3x3(fast_score_map(...))`` beside it, which is also what the kernel is
-checked against.
+``fast_nms_pyramid`` is the entry point the extractor calls, once a frame
+for every level of the pyramid; ``fast_nms`` is its one-level case.  On
+CUDA tensors both launch the hand-written kernel ``csrc/fast_nms.cu`` (built
+at first use), once a call, or raise; on CPU tensors they run the plain
+PyTorch version ``nms3x3(fast_score_map(...))`` beside it, which is also
+what the kernel is checked against.  ``fast_nms.launches`` counts the
+kernel's launches from either entry point.
 """
 
 from __future__ import annotations
 
 import torch
+
+MAX_LEVELS = 16   # levels the kernel's table holds (csrc/fast_nms.cu)
 
 # Bresenham circle of radius 3, clockwise from the top: (dy, dx) pairs.
 CIRCLE = (
@@ -68,42 +72,63 @@ def fast_nms_plain(imgs: torch.Tensor, threshold: float,
     return nms3x3(fast_score_map(imgs, threshold, border))
 
 
-def fast_nms(imgs: torch.Tensor, threshold: float,
-             border: int = 16) -> torch.Tensor:
-    """FAST-9 score + strict 3x3 NMS of a (B, H, W) float32 batch.
+def fast_nms_pyramid(levels: list[torch.Tensor], threshold: float,
+                     border: int = 16) -> list[torch.Tensor]:
+    """FAST-9 score + strict 3x3 NMS of every level of a pyramid: a list of
+    (B, H_l, W_l) float32 batches -> the list of their score maps.
 
-    A CUDA tensor goes through the hand-written kernel (one launch for the
-    whole batch, counted in ``fast_nms.launches``); a CPU tensor through the
-    plain version.  Any other device, or a tensor the kernel does not take,
-    raises.
-    """
-    if imgs.device.type == "cpu":
-        return fast_nms_plain(imgs, threshold, border)
-    if imgs.device.type != "cuda":
-        raise ValueError(f"fast_nms: unsupported device {imgs.device}")
-    if imgs.dtype != torch.float32 or imgs.dim() != 3:
-        raise ValueError(
-            f"fast_nms: expected (B, H, W) float32, got {tuple(imgs.shape)} "
-            f"{imgs.dtype}")
-    if not imgs.is_contiguous():
-        raise ValueError("fast_nms: input must be contiguous")
-    b, h, w = imgs.shape
-    if b == 0 or h == 0 or w == 0:
-        raise ValueError(f"fast_nms: empty batch {tuple(imgs.shape)}")
+    CUDA tensors (all on one card, one batch size, at most
+    ``MAX_LEVELS``) go through one launch of the kernel for all levels;
+    CPU tensors through the plain version level by level.  Anything else
+    raises."""
+    if not levels:
+        raise ValueError("fast_nms_pyramid: no levels")
+    if all(x.device.type == "cpu" for x in levels):
+        return [fast_nms_plain(x, threshold, border) for x in levels]
+    for x in levels:
+        if x.device.type != "cuda":
+            raise ValueError(f"fast_nms_pyramid: unsupported device {x.device}")
+        if x.dtype != torch.float32 or x.dim() != 3:
+            raise ValueError(f"fast_nms_pyramid: expected (B, H, W) float32, got "
+                             f"{tuple(x.shape)} {x.dtype}")
+        if not x.is_contiguous():
+            raise ValueError("fast_nms_pyramid: input must be contiguous")
+        if 0 in x.shape:
+            raise ValueError(f"fast_nms_pyramid: empty batch {tuple(x.shape)}")
     if border < 4:
-        raise ValueError("fast_nms: the kernel needs border >= 4")
+        raise ValueError("fast_nms_pyramid: the kernel needs border >= 4")
+    if len({x.device for x in levels}) != 1 or len({x.shape[0] for x in levels}) != 1:
+        raise ValueError("fast_nms_pyramid: levels must share a device and a batch size")
+    if len(levels) > MAX_LEVELS:
+        raise ValueError(f"fast_nms_pyramid: at most {MAX_LEVELS} levels")
+    import ctypes
+
     from pyslam_tpu_torch import _build
 
     lib = _build.load()
-    out = torch.empty_like(imgs)
-    with torch.cuda.device(imgs.device):
-        stream = torch.cuda.current_stream(imgs.device).cuda_stream
-        err = lib.pyslam_fast_nms(imgs.data_ptr(), out.data_ptr(), b, h, w,
-                                  float(threshold), int(border), stream)
+    n = len(levels)
+    outs = [torch.empty_like(x) for x in levels]
+    ins_p = (ctypes.c_void_p * n)(*[x.data_ptr() for x in levels])
+    outs_p = (ctypes.c_void_p * n)(*[o.data_ptr() for o in outs])
+    hs = (ctypes.c_int * n)(*[x.shape[1] for x in levels])
+    ws = (ctypes.c_int * n)(*[x.shape[2] for x in levels])
+    dev = levels[0].device
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.pyslam_fast_nms_pyramid(ins_p, outs_p, hs, ws, n, levels[0].shape[0],
+                                          float(threshold), int(border), stream)
     if err != 0:
-        raise RuntimeError(f"fast_nms kernel launch failed: cudaError {err}")
+        raise RuntimeError(f"fast_nms_pyramid kernel launch failed: cudaError {err}")
     fast_nms.launches += 1
-    return out
+    return outs
+
+
+def fast_nms(imgs: torch.Tensor, threshold: float,
+             border: int = 16) -> torch.Tensor:
+    """FAST-9 score + strict 3x3 NMS of a (B, H, W) float32 batch: the
+    one-level case of ``fast_nms_pyramid`` (one launch on the card, the
+    plain version on the CPU)."""
+    return fast_nms_pyramid([imgs], threshold, border)[0]
 
 
 fast_nms.launches = 0

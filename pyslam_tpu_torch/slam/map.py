@@ -62,7 +62,7 @@ class MapPointStorage:
 
 
 class Map:
-    def __init__(self, device: torch.device | str):
+    def __init__(self, *, device: torch.device | str = "cuda"):
         self.device = torch.device(device)
         self.points = MapPointStorage()
         self.keyframes: dict[int, KeyFrame] = {}       # kid -> KeyFrame

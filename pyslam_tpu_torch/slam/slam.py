@@ -30,7 +30,7 @@ class Slam:
     def __init__(self, camera: PinholeCamera,
                  feature_tracker_config: FeatureTrackerConfig | str = "ORB2",
                  loop_detector_config=None, sensor_type: SensorType = SensorType.STEREO, *,
-                 device: torch.device | str):
+                 device: torch.device | str = "cuda"):
         if loop_detector_config is not None:
             raise NotImplementedError("loop closing is not ported yet")
         if sensor_type != SensorType.STEREO:
@@ -45,7 +45,7 @@ class Slam:
         if info is not None:
             Parameters.kMaxDescriptorDistance = float(info.max_distance)
             Parameters.kMaxOrbDistanceSearchByReproj = 0.5 * float(info.max_distance)
-        self.map = Map(self.device)
+        self.map = Map(device=self.device)
         self.local_mapping = LocalMapping(self.map, camera, sensor_type, self.feature_tracker)
         self.tracking = Tracking(camera, self.feature_tracker, self.map, sensor_type,
                                  self.local_mapping)
@@ -99,7 +99,7 @@ class Slam:
     def reset(self):
         self.tracking.reset_requested = False
         self._prefetched = None
-        self.map = Map(self.device)
+        self.map = Map(device=self.device)
         lm = self.local_mapping
         lm.map = self.map
         lm.queue.clear()

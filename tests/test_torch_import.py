@@ -52,3 +52,19 @@ def test_import_builds_nothing():
     from pyslam_tpu_torch import _build
 
     assert _build._lib is None
+
+
+@pytest.mark.parametrize("name", ["slam.slam.Slam", "features.orb2.ORB2Extractor",
+                                  "features.tracker.FeatureTracker",
+                                  "features.tracker.feature_tracker_factory", "slam.map.Map"])
+def test_entry_points_default_to_the_card(name):
+    """The entry points run on the card unless the caller asks for the CPU;
+    ``device`` is keyword-only."""
+    import importlib
+    import inspect
+
+    mod, attr = name.rsplit(".", 1)
+    obj = getattr(importlib.import_module(f"pyslam_tpu_torch.{mod}"), attr)
+    param = inspect.signature(obj).parameters["device"]
+    assert param.default == "cuda"
+    assert param.kind is inspect.Parameter.KEYWORD_ONLY

@@ -39,3 +39,20 @@ def test_fast_nms_kernel_rejects_bad_input(cuda):
         fast_nms(torch.zeros((2, 64, 64), dtype=torch.float64, device=cuda), 20.0)
     with pytest.raises(ValueError):
         fast_nms(torch.zeros((2, 64, 64), device=cuda).transpose(1, 2), 20.0)
+
+
+def test_fast_nms_pyramid_one_launch_equals_plain(cuda):
+    """All 8 levels of a 376x1241 stereo pair in one launch, each level
+    identical to the plain version."""
+    from pyslam_tpu_torch.ops.fast import fast_nms_pyramid
+    from pyslam_tpu_torch.ops.image import build_pyramid
+
+    r = rng(11)
+    pair = np.stack([synth_image(r, 376, 1241, n_blobs=80) for _ in range(2)])
+    levels = build_pyramid(torch.as_tensor(pair).to(cuda), 8, 1.2)
+    before = fast_nms.launches
+    got = fast_nms_pyramid(levels, 20.0)
+    torch.cuda.synchronize()
+    assert fast_nms.launches == before + 1
+    for lv, (x, y) in enumerate(zip(levels, got)):
+        assert torch.equal(y, fast_nms_plain(x.contiguous(), 20.0)), lv

@@ -1,22 +1,29 @@
 """ORB2 extraction of the port against ``pyslam_tpu.features.orb2`` on a
 240x320 synthetic stereo frame (600 features, 4 levels).
 
+The reference runs with x64 off, as the JAX package runs outside this
+suite: its resize builds the pyramid's weights in the type of a Python
+scalar, float64 under the suite's x64 (see test_torch_image.py).
+
 What must be equal, and why the rest has a tolerance:
 - fed the reference's own pyramid, the port's per-level extraction gives
   identical keypoints (xy, level, size, response, valid) and descriptor
-  bits at every level; angles agree within 1e-4 degrees (atan2 of two
-  libraries), which leaves every orientation bin the same;
+  bits at every level, with x64 off and on; angles agree within 1e-4
+  degrees (atan2 of two libraries), which leaves every orientation bin the
+  same;
 - level 0 reads the input image itself, so with the port's own pyramid its
   keypoints and descriptor bits are identical too;
-- levels >= 1 of the port's own pyramid agree with jax.image.resize only to
-  float32 rounding (see test_torch_image.py): XLA's CPU matrix product sums
-  the column pass in an order that depends on the shape, which no fixed
-  order reproduces, and a score or a pair of BRIEF pixels that ties in one
-  package can differ by an ulp in the other.  So over all levels >= 99 % of
-  the keypoints and >= 99 % of the descriptor bits of the shared keypoints
-  are identical;
+- levels >= 1 of the port's own pyramid have the reference's weights and
+  row pass bit for bit, but XLA's CPU matrix product sums the column pass
+  with 2 or 4 interleaved accumulators by a rule that depends on the shape,
+  which the port does not follow: an ulp on up to half of the pixels, and
+  a score or a pair of BRIEF pixels that ties in one package can differ in
+  the other.  Measured here: 99.5 % of the keypoints identical, 99.85 % of
+  the descriptor bits of the shared keypoints (one descriptor in ten with a
+  flipped bit); the floors are 99 % each;
 - right-image u and depth agree within 1e-4 relative wherever both
-  packages matched the keypoint to the same right keypoint.
+  packages matched the keypoint to the same right keypoint (95.1 % of the
+  keypoints either matched, floor 95 %).
 """
 
 import jax
@@ -43,15 +50,18 @@ def frame():
 
 @pytest.fixture(scope="module")
 def single(frame):
-    ref = jax.tree.map(np.asarray, JaxORB2(num_features=NF, num_levels=NL)(frame[0]))
+    with jax.enable_x64(False):
+        ref = jax.tree.map(np.asarray, JaxORB2(num_features=NF, num_levels=NL)(frame[0]))
     got = [np_(x) for x in ORB2Extractor(num_features=NF, num_levels=NL, device="cpu")(frame[0])]
     return ref, got
 
 
 @pytest.fixture(scope="module")
 def stereo(frame):
-    meta, desc = JaxORB2(num_features=NF, num_levels=NL).extract_stereo_deferred(
-        frame[0], frame[1], **STEREO)
+    with jax.enable_x64(False):
+        meta, desc = JaxORB2(num_features=NF, num_levels=NL).extract_stereo_deferred(
+            frame[0], frame[1], **STEREO)
+        meta, desc = np.asarray(meta), np.asarray(desc)
     fl, ur, depth = ORB2Extractor(num_features=NF, num_levels=NL, device="cpu").extract_stereo(
         frame[0], frame[1], **STEREO)
     return np.asarray(meta), np.asarray(desc), fl, np_(ur), np_(depth)
@@ -73,15 +83,20 @@ def test_level0_identical(single):
         assert np.array_equal(got[i][lv0], getattr(ref, field)[lv0]), field
 
 
-@pytest.fixture(scope="module")
-def on_reference_pyramid(frame):
-    """The port's per-level extraction of the left image, fed the pyramid
-    that the reference builds (compiled, as inside its extractor)."""
-    pyr = jax.jit(lambda im: jimage.build_pyramid(im, NL, 1.2))(frame[0])
+def _on_pyramid(img, x64):
+    """The port's per-level extraction of ``img``, fed the pyramid that the
+    reference builds (compiled, as inside its extractor)."""
+    with jax.enable_x64(x64):
+        pyr = jax.jit(lambda im: jimage.build_pyramid(im, NL, 1.2))(img)
     ex = ORB2Extractor(num_features=NF, num_levels=NL, device="cpu")
     got = extract_pyramid([t(np.asarray(p))[None] for p in pyr], ex.num_features,
                           ex.scale_factor, float(ex.fast_threshold), ex.cell, ex.per_cell)
     return [np_(x[0]) for x in got]
+
+
+@pytest.fixture(scope="module")
+def on_reference_pyramid(frame):
+    return _on_pyramid(frame[0], False)
 
 
 @pytest.mark.parametrize("i, field", [(0, "xy"), (1, "level"), (3, "size"), (4, "response"),
@@ -89,6 +104,17 @@ def on_reference_pyramid(frame):
 def test_levels_identical_on_reference_pyramid(single, on_reference_pyramid, i, field):
     ref, _ = single
     assert np.array_equal(on_reference_pyramid[i], getattr(ref, field)), field
+
+
+def test_levels_identical_on_reference_pyramid_x64_on(frame):
+    """The per-level logic does not depend on how the pyramid was made: with
+    x64 on too, the port fed the reference's pyramid is identical."""
+    with jax.enable_x64(True):
+        ref = jax.tree.map(np.asarray, JaxORB2(num_features=NF, num_levels=NL)(frame[0]))
+    got = _on_pyramid(frame[0], True)
+    for i, field in ((0, "xy"), (1, "level"), (3, "size"), (4, "response"), (5, "desc"),
+                     (6, "valid")):
+        assert np.array_equal(got[i], getattr(ref, field)), field
 
 
 def test_angles_on_reference_pyramid(single, on_reference_pyramid):
