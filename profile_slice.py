@@ -4,12 +4,15 @@
     python3 profile_slice.py [--frames 30]
 
 Drives the stream of chip_smoke.py (376x1241 synthetic stereo, 2000 ORB2
-features over 8 levels) through Slam.track() and prints:
+features over 8 levels) through Slam.track(), with the TSDF integrator and
+its SGM depth attached as chip_smoke.py's main path attaches it (bench.py's
+main stage), and prints:
   - a torch.profiler window over frames 15-24: wall time, summed self device
     time and the device's busy share, the number of CUDA kernel launches, the
     host time spent in cudaLaunchKernel, and the top ops by device and by
     host time;
-  - the per-stage totals of Slam.timings() over the whole run;
+  - the per-stage totals of Slam.timings() over the whole run (the
+    integrator's SGM and TSDF stages among them) and the volume's size;
   - isolated times, at main-path shapes, of pose_optimization (N = 2000),
     extract_stereo of one 376x1241 pair and search_by_projection (M = 8192 map
     points x N = 2000 keypoints).
@@ -77,6 +80,8 @@ def main():
     slam = Slam(cam, FeatureTrackerConfig(num_features=chip_smoke.N_FEATURES,
                                           num_levels=chip_smoke.N_LEVELS),
                 sensor_type=SensorType.STEREO, device=dev)
+    integ = chip_smoke.build_integrator(cam, dev)
+    slam.set_volumetric_integrator(integ)
 
     def step(i):
         nxt = None
@@ -116,6 +121,8 @@ def main():
     print("stage totals (ms): " + json.dumps(
         {mod: {k: round(v["total_ms"], 1) for k, v in st.items()}
          for mod, st in slam.timings().items()}))
+    print(f"volume: {integ.volume.num_voxels()} voxels from {integ.volume.num_integrated} "
+          f"keyframes, load factor {integ.volume.num_voxels() / integ.volume.capacity:.4f}")
 
     r = np.random.default_rng(0)
     n, m = chip_smoke.N_FEATURES, 8192

@@ -6,8 +6,8 @@ Analog of the reference's static ``Parameters`` class
 
 Copied from ``pyslam_tpu/config_parameters.py``, keeping only the flags this
 package reads, with the same values. The flags of the subsystems not ported
-yet (dense mapping, loop closing, relocalization, semantics) come with the
-code that reads them; the thread/process, viewer, GTSAM and debug-file flags
+yet (loop closing, relocalization, semantics) come with the code that reads
+them; the thread/process, viewer, GTSAM and debug-file flags
 have no counterpart here.
 """
 
@@ -91,6 +91,26 @@ class Parameters:
     kScaleConsistencyFactor = 1.5
     kMaxOrbDistanceSearchByReproj = 50      # descriptor gate on projection search
     kCosMaxParallax = 0.9998                # triangulation parallax acceptance
+
+    # -------------------------------------------------------------- dense
+    kVolumetricIntegrationVoxelSize = 0.05
+    kVolumetricIntegrationSdfTrunc = 0.2
+    kVolumetricIntegrationDepthTruncIndoor = 4.0
+    kVolumetricIntegrationDepthTruncOutdoor = 10.0
+    # the reference's flag; neither the reference nor the port reads it yet
+    kVolumetricIntegrationMinNumLBATimes = 1
+    kVolumetricIntegrationUseDepthEstimator = False
+    # estimator used when kVolumetricIntegrationUseDepthEstimator is on
+    kVolumetricIntegrationDepthEstimatorType = "sgbm"
+    # SGM internal resolution divisor for integration-time depth: 2 runs the
+    # matcher at half resolution and half the disparity range (the same
+    # metric depth range, since disparity scales with fx)
+    kVolumetricIntegrationDepthSGMDownscale = 2
+    # voxel-hash table slots: keep the load factor <= ~0.25 (the insert
+    # probes at most INSERT_ROUNDS slots; a saturated table stops growing)
+    kVolumetricIntegrationTableCapacity = 1 << 22
+    # max voxel samples on each side of the measured surface per depth ray
+    kVolumetricIntegrationBandMaxSteps = 2
 
     # ------------------------------------------------------------- storage
     kMapPointCapacityInitial = 1 << 15      # initial SoA map-point capacity

@@ -1,10 +1,11 @@
 """Local mapping back-end (port of ``pyslam_tpu/slam/local_mapping.py``
-without the loop-closing, semantic and volumetric hand-offs).
+without the loop-closing and semantic hand-offs).
 
 Per new keyframe: associate and refresh its map points -> cull recent
 points -> triangulate new points against covisible neighbours (epipolar-
 gated matching on the device, DLT on the host) -> fuse duplicates -> local
-bundle adjustment over the covisibility window -> cull redundant keyframes.
+bundle adjustment over the covisibility window -> cull redundant keyframes
+-> hand the keyframe to the volumetric integrator, if one is attached.
 
 Scheduling: one host thread.  Each tracked frame advances the back-end by
 bounded slices (``step_async``); device stages are dispatched and their
@@ -77,6 +78,7 @@ class LocalMapping:
         self._fuse_job: dict | None = None
         self._lba: dict | None = None
         self.lba_applied = 0
+        self.volumetric_integrator = None   # attached by Slam.set_volumetric_integrator
         self.timings = StageTimings("local_mapping")
         self._kf_store: KFDeviceStore | None = None
         dev = self.device
@@ -204,6 +206,8 @@ class LocalMapping:
             with t.stage("cull_kfs"):
                 self.cull_keyframes(kf)
             self._trim_device_caches(kf)
+            if self.volumetric_integrator is not None:
+                self.volumetric_integrator.add_keyframe(kf)
             self._job = None
             return True
         self._job_stage = s + 1

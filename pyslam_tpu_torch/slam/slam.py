@@ -2,12 +2,13 @@
 ``pyslam_tpu/slam/slam.py:37-229``, ``:336-347``).
 
 ``Slam(camera, feature_tracker_config, sensor_type=STEREO, device=...)``
-with ``track()``, ``finish()``, ``get_final_trajectory()`` and
-``timings()``.  The host drives everything in one thread: ``track()``
-harvests finished back-end work, tracks the frame, then advances local
-mapping by a bounded slice; the device queue gives the overlap.  The loop
-detector and the volumetric integrator are not ported yet, and only the
-stereo sensor is.
+with ``track()``, ``finish()``, ``get_final_trajectory()``, ``timings()``
+and ``set_volumetric_integrator()``.  The host drives everything in one
+thread: ``track()`` harvests finished back-end work, tracks the frame,
+snapshots a new keyframe's images for the volumetric integrator, advances
+local mapping by a bounded slice and issues one integrator stage; the
+device queue gives the overlap.  The loop detector is not ported yet, and
+only the stereo sensor is.
 """
 
 from __future__ import annotations
@@ -23,6 +24,7 @@ from pyslam_tpu_torch.slam.frame import Frame
 from pyslam_tpu_torch.slam.local_mapping import LocalMapping
 from pyslam_tpu_torch.slam.map import Map
 from pyslam_tpu_torch.slam.tracking import Tracking, TrackingState
+from pyslam_tpu_torch.utils.device import same_device
 from pyslam_tpu_torch.utils.logging import Printer
 
 
@@ -50,6 +52,8 @@ class Slam:
         self.tracking = Tracking(camera, self.feature_tracker, self.map, sensor_type,
                                  self.local_mapping)
         self._prefetched = None   # (frame_id, Frame) built during the last call
+        self.volumetric_integrator = None
+        self._last_input = None   # (frame_id, (img, img_right)) of the last call
 
     def track(self, img, img_right=None, frame_id=0, timestamp=0.0,
               next_input: dict | None = None):
@@ -85,20 +89,51 @@ class Slam:
         if self.tracking.reset_requested:
             Printer.yellow("Slam: resetting session (early tracking loss)")
             self.reset()
+        # a keyframe created this frame: snapshot its images for the
+        # integrator, which takes them when local mapping hands the keyframe
+        # over (a keyframe made from the previous call's input takes that)
+        vi = self.volumetric_integrator
+        kf = self.tracking.kf_ref
+        if vi is not None and kf is not None:
+            imgs = None
+            if kf.id == frame_id:
+                imgs = (img, img_right)
+            elif self._last_input is not None and kf.id == self._last_input[0]:
+                imgs = self._last_input[1]
+            if imgs is not None:
+                vi.offer_keyframe_data(kf, intensity=imgs[0], img_right=imgs[1])
+        self._last_input = (frame_id, (img, img_right))
         self.local_mapping.step_async()
+        if vi is not None:
+            vi.step()   # at most one integration stage a frame
         return frame
 
     def finish(self):
-        """Drain all queued back-end work."""
+        """Drain all queued back-end work, the integrator's last."""
         self.local_mapping.finish()
+        if self.volumetric_integrator is not None:
+            self.volumetric_integrator.run_all()
 
     def timings(self) -> dict:
-        return {"tracking": self.tracking.timings.report(),
-                "local_mapping": self.local_mapping.timings.report()}
+        out = {"tracking": self.tracking.timings.report(),
+               "local_mapping": self.local_mapping.timings.report()}
+        if self.volumetric_integrator is not None:
+            out["volumetric_integrator"] = self.volumetric_integrator.timings.report()
+        return out
+
+    def set_volumetric_integrator(self, integrator):
+        """Attach a dense integrator: local mapping hands it each finished
+        keyframe, and ``track()`` advances it one stage a frame.  It must
+        live on this Slam's device."""
+        if integrator is not None and not same_device(integrator.device, self.device):
+            raise ValueError(f"integrator on {integrator.device}, Slam on {self.device}")
+        self.volumetric_integrator = integrator
+        self.local_mapping.volumetric_integrator = integrator
 
     def reset(self):
         self.tracking.reset_requested = False
         self._prefetched = None
+        self._last_input = None
         self.map = Map(device=self.device)
         lm = self.local_mapping
         lm.map = self.map
@@ -110,6 +145,8 @@ class Slam:
         self.tracking.state = TrackingState.NO_IMAGES_YET
         self.tracking.initializer.reset()
         self.tracking.motion_model.reset()
+        if self.volumetric_integrator is not None:
+            self.volumetric_integrator.reset()
 
     def get_final_trajectory(self):
         """(timestamps, Twc poses) re-anchored to the optimised keyframes."""

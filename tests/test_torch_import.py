@@ -14,6 +14,8 @@ PKG = os.path.join(ROOT, "pyslam_tpu_torch")
 def test_import_loads_no_jax():
     code = (
         "import sys, pyslam_tpu_torch, pyslam_tpu_torch.slam.slam, pyslam_tpu_torch.interop\n"
+        "import pyslam_tpu_torch.dense.volumetric_integrator, pyslam_tpu_torch.dense.marching\n"
+        "import pyslam_tpu_torch.depth_estimation.depth_estimator\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
         "or m == 'pyslam_tpu' or m.startswith('pyslam_tpu.')]\n"
         "assert not bad, bad\n"
@@ -56,7 +58,13 @@ def test_import_builds_nothing():
 
 @pytest.mark.parametrize("name", ["slam.slam.Slam", "features.orb2.ORB2Extractor",
                                   "features.tracker.FeatureTracker",
-                                  "features.tracker.feature_tracker_factory", "slam.map.Map"])
+                                  "features.tracker.feature_tracker_factory", "slam.map.Map",
+                                  "dense.tsdf.TSDFVolume",
+                                  "depth_estimation.depth_estimator.DepthEstimatorSgbm",
+                                  "depth_estimation.depth_estimator.depth_estimator_factory",
+                                  "dense.volumetric_integrator.VolumetricIntegrator",
+                                  "dense.volumetric_integrator.volumetric_integrator_factory",
+                                  "interop.voxel_table_from_numpy"])
 def test_entry_points_default_to_the_card(name):
     """The entry points run on the card unless the caller asks for the CPU;
     ``device`` is keyword-only."""
