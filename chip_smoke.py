@@ -35,16 +35,34 @@ Phases (one line each, and any failure exits non-zero):
      load factor beside the capacity flag's sizing rule (<= 0.25), the share
      of a further keyframe's updates the final table would drop (both held
      under ceilings, LOAD_MAX and DROP_MAX), the stage totals and the peak
-     device memory.
+     device memory;
+  8. the loop stage of bench.py:193-267: 150 frames of a 376x1241 stereo
+     circle with a revisit tail (period 130, a 16000-point world of extent
+     30 m, 2000 features on 8 levels, depth threshold 35) through
+     Slam.track() with next-frame prefetch and the DBOW3 loop detector, then
+     finish(); the frames are rendered first by worker processes.  Prints FPS, p50 / p95 latency over frames 8..149 and the slowest
+     frame, loops closed, tracked frames, ATE before and after each
+     correction and at the end, GBA runs applied and aborted, fast_nms
+     launches and the loop-closing stage timers; asserts a loop closed, every
+     frame tracked, ATE under the ceiling, a GBA applied and one fast_nms
+     launch a frame.  Then, on the final map: a frame of the stage
+     relocalised from a pose pushed 1.1 m away, and the loop event's device
+     cost:
+     kernel launches and summed kernel time (torch.profiler) of one
+     geometry check, one correction (without its GBA), its pose graph alone,
+     a GBA dispatch (problem and first chunk) and a GBA chunk.
 It ends with a JSON line of kernel results, the card's name and power limit,
 and, last, {"ok": true, "device": {...}}.
 """
 
 import json
+import multiprocessing
+import os
 import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ProcessPoolExecutor
 
 import numpy as np
 
@@ -96,6 +114,11 @@ PIXEL_BYTES, OPS_PIXEL, OPS_UPDATE = 4 + 4, 7, 1 + 2 + 2 + 3 * 6 + 4 + 5 + 1
 # flag's sizing rule (<= 0.25) at bench.py's configuration, so these guard
 # the insert against a regression, not the rule
 LOAD_MAX, DROP_MAX = 0.45, 0.05
+# the loop stage as bench.py:193-267 configures it
+LOOP_FRAMES, LOOP_PERIOD = 150, 130
+LOOP_SKIP = 8          # latency percentiles over frames 8.. (bench.py:251)
+RELOC_FRAME = 60       # relocalised against the final map after the stage
+RENDER_CHUNK = 10
 
 
 def log(msg):
@@ -133,6 +156,23 @@ def bench_stream():
     return SyntheticDataset(num_frames=N_FRAMES, h=H, w=W, fx=FX, baseline=BASELINE_M,
                             trajectory="line", step=0.8, sensor_type=SensorType.STEREO,
                             world=world)
+
+
+def loop_stream():
+    from pyslam_tpu_torch.io.dataset_types import SensorType
+    from pyslam_tpu_torch.io.synthetic import SyntheticDataset, SyntheticWorld
+
+    world = SyntheticWorld(n_points=16000, extent=30.0, depth_range=(4.0, 80.0))
+    return SyntheticDataset(num_frames=LOOP_FRAMES, h=H, w=W, fx=FX, baseline=BASELINE_M,
+                            trajectory="loop", period=LOOP_PERIOD,
+                            sensor_type=SensorType.STEREO, world=world)
+
+
+def render_loop_frames(first, last):
+    """Frames [first, last) of the loop stream (a worker process)."""
+    ds = loop_stream()
+    return [(ds.getImage(i), ds.getImageRight(i), ds.getTimestamp(i))
+            for i in range(first, last)]
 
 
 def median_ms(fn, n=20):
@@ -226,11 +266,16 @@ def check_ties(dev):
     checked = 0
     # matchers' distance matrices, and the aggregated SGM volume of the
     # integrator's depth (188x620, 32 disparities)
-    for shape in ((2000, 2000), (2000, 8192), (4, 2000, 2000), (188, 620, 32)):
-        for dtype in (torch.int32, torch.float32):
+    # and the RANSAC's best hypothesis (argmax of 300 int64 inlier counts)
+    for shape, dtypes in (((2000, 2000), (torch.int32, torch.float32)),
+                          ((2000, 8192), (torch.int32, torch.float32)),
+                          ((4, 2000, 2000), (torch.int32, torch.float32)),
+                          ((188, 620, 32), (torch.int32, torch.float32)),
+                          ((300,), (torch.int64, torch.int32))):
+        for dtype in dtypes:
             keys = rng.integers(0, 4, shape)
             x = torch.as_tensor(keys).to(dev, dtype)
-            for dim in (-1, -2):
+            for dim in (-1, -2)[:len(shape)]:
                 for name, fn, ref in (("argmin", torch.argmin, np.argmin),
                                       ("argmax", torch.argmax, np.argmax)):
                     got = fn(x, dim).cpu().numpy()
@@ -480,6 +525,142 @@ def dense_phase(dev, ds, cam, left, right):
     return out
 
 
+def ate_of(slam, gt_t, gt_p):
+    """ATE (m) of the trajectory tracked so far against the ground truth."""
+    from pyslam_tpu_torch.evaluation.metrics import eval_ate
+
+    ts, Twc = slam.tracking.history.final_trajectory(slam.map)
+    return float(eval_ate(ts, Twc[:, :3, 3], gt_t, gt_p, align=True, with_scale=False).rmse)
+
+
+def loop_phase(dev, cam_args, frames):
+    """Phase 8: bench.py's loop stage on the port; returns its fast_nms
+    launches.  ``frames`` are the rendered (left, right, timestamp)."""
+    import torch
+
+    from pyslam_tpu_torch.features.tracker import FeatureTrackerConfig
+    from pyslam_tpu_torch.io.dataset_types import SensorType
+    from pyslam_tpu_torch.ops import optim
+    from pyslam_tpu_torch.ops.fast import fast_nms
+    from pyslam_tpu_torch.slam.camera import PinholeCamera
+    from pyslam_tpu_torch.slam.slam import Slam
+
+    ds = loop_stream()
+    gt_t = np.asarray([ds.getTimestamp(i) for i in range(LOOP_FRAMES)])
+    gt_p = ds.poses[:LOOP_FRAMES, :3, 3]
+    cam = PinholeCamera(*cam_args, fps=ds.fps, bf=ds.fx * ds.baseline, depth_threshold=35.0)
+    slam = Slam(cam, FeatureTrackerConfig(num_features=N_FEATURES, num_levels=N_LEVELS),
+                loop_detector_config="DBOW3", sensor_type=SensorType.STEREO, device=dev)
+    lc = slam.loop_closing
+    events, pgo_args = [], []
+    correct = lc.correct_loop
+    pgo = optim.pose_graph_optimize
+
+    def correct_loop(kf, cand, S12):
+        before = ate_of(slam, gt_t, gt_p)
+        correct(kf, cand, S12)
+        events.append(dict(kf=kf.kid, cand=cand.kid, S12=S12.copy(),
+                           geometry=dict(lc.last_geometry), ate_before=before,
+                           ate_after=ate_of(slam, gt_t, gt_p), pgo=lc.last_pgo_size))
+
+    def pose_graph_optimize(*args, **kw):
+        pgo_args[:] = [args, kw]
+        return pgo(*args, **kw)
+
+    lc.correct_loop = correct_loop
+    optim.pose_graph_optimize = pose_graph_optimize
+    torch.cuda.synchronize()
+    fast_nms.launches = 0
+    lats = []
+    t_start = time.perf_counter()
+    for i, (img_l, img_r, ts) in enumerate(frames):
+        nxt = None
+        if i + 1 < LOOP_FRAMES:
+            nl, nr, nts = frames[i + 1]
+            nxt = {"img": nl, "img_right": nr, "frame_id": i + 1, "timestamp": nts}
+        n_events = len(events)
+        t1 = time.perf_counter()
+        slam.track(img_l, img_right=img_r, frame_id=i, timestamp=ts, next_input=nxt)
+        lats.append(time.perf_counter() - t1)
+        if len(events) > n_events:
+            e = events[-1]
+            log(f"[loop] frame {i}: loop kf {e['kf']} <-> kf {e['cand']} closed in a "
+                f"{lats[-1] * 1e3:.1f} ms frame; geometry {json.dumps(e['geometry'])}; PGO "
+                f"{e['pgo'][0]} vertices, {e['pgo'][1]} edges; ATE so far {e['ate_before']:.4f}"
+                f" m before the correction, {e['ate_after']:.4f} m after")
+        elif i % 25 == 0:
+            log(f"[loop] frame {i}: {lats[-1] * 1e3:.1f} ms, {slam.map.num_keyframes()} "
+                f"keyframes, {slam.map.num_points()} points")
+    slam.finish()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t_start
+    launches = fast_nms.launches
+    lc.correct_loop = correct
+    optim.pose_graph_optimize = pgo
+    n_tracked = len(slam.tracking.history.timestamps)
+    ts_est, poses = slam.get_final_trajectory()
+    ate = ate_of(slam, gt_t, gt_p)
+    lat_ms = np.asarray(lats[LOOP_SKIP:]) * 1e3
+    gba = slam.GBA
+    log(f"[loop] {LOOP_FRAMES / wall:.2f} FPS over {LOOP_FRAMES} frames (incl. final drain), "
+        f"latency p50 {np.percentile(lat_ms, 50):.1f} ms p95 {np.percentile(lat_ms, 95):.1f} ms"
+        f" max {lat_ms.max():.1f} ms (frame {LOOP_SKIP + int(np.argmax(lat_ms))}) over frames "
+        f"{LOOP_SKIP}-{LOOP_FRAMES - 1}; {lc.num_loops_closed} loops closed; "
+        f"{n_tracked}/{LOOP_FRAMES} tracked; {slam.map.num_keyframes()} keyframes, "
+        f"{slam.map.num_points()} points; ATE {ate:.4f} m; GBA {gba.runs_completed} applied, "
+        f"{gba.runs_aborted} aborted (cost {gba.last_cost:.3f}); fast_nms launches {launches}")
+    log("[loop] stage totals (ms, calls): " + json.dumps(
+        {mod: {k: [round(v["total_ms"], 1), v["calls"]] for k, v in st.items()}
+         for mod, st in slam.timings().items()
+         if mod in ("loop_closing", "gba", "local_mapping")}))
+    assert lc.num_loops_closed >= 1, "no loop closed"
+    assert n_tracked == LOOP_FRAMES, f"{n_tracked}/{LOOP_FRAMES} tracked"
+    assert np.isfinite(poses).all() and ate < ATE_MAX, ate
+    assert gba.runs_completed >= 1, "no GBA applied"
+    assert launches == LOOP_FRAMES, f"{launches} fast_nms launches for {LOOP_FRAMES} frames"
+    assert slam.map.device.type == "cuda" and slam.map.device_store()[0].device.type == "cuda"
+
+    # a lost frame relocalised on the card: frame RELOC_FRAME again, its
+    # pose pushed 1 m away, against the final map; held to its tracked pose
+    from pyslam_tpu_torch.slam.frame import Frame
+
+    img_l, img_r, ts = frames[RELOC_FRAME]
+    lost = Frame(cam, img_l, img_right=img_r, timestamp=ts,
+                 feature_tracker=slam.feature_tracker, frame_id=10_000)
+    Twc_tracked = poses[int(np.argmin(np.abs(ts_est - ts)))]
+    push = np.eye(4)
+    push[:3, 3] = [1.0, 0.0, 0.5]
+    lost.update_pose(push @ np.linalg.inv(Twc_tracked))
+    T_rel, ok_rel = lc.relocalizer.relocalize(lost, slam.map)
+    err = float(np.linalg.norm(np.linalg.inv(T_rel)[:3, 3] - Twc_tracked[:3, 3]))
+    log(f"[loop] frame {RELOC_FRAME} relocalised from a pose 1.1 m off: ok {ok_rel}, "
+        f"{int((lost.points >= 0).sum())} points, {err:.4f} m from its tracked pose")
+    assert ok_rel and err < 0.3, (ok_rel, err)
+
+    # the loop event's device cost, replayed on the final map (its result
+    # is not used further): geometry check, correction without its GBA, the
+    # pose graph alone, the GBA's dispatch and one chunk
+    e = events[0]
+    kf, cand = slam.map.keyframes.get(e["kf"]), slam.map.keyframes.get(e["cand"])
+    cost = {}
+    if kf is not None and cand is not None:
+        cost["geometry_check"] = profile_call(lambda: lc.geometry_check(kf, cand))
+        dispatch = gba.dispatch
+        gba.dispatch = lambda *a, **k: None
+        cost["correct_loop_without_gba"] = profile_call(lambda: lc.correct_loop(kf, cand,
+                                                                               e["S12"]))
+        gba.dispatch = dispatch
+    args, kw = pgo_args
+    cost["pgo"] = profile_call(lambda: pgo(*args, **kw))
+    cost["gba_dispatch"] = profile_call(lambda: gba.dispatch(slam.map))
+    cost["gba_chunk"] = profile_call(lambda: gba.poll(block=True))
+    gba.finish()
+    log(f"[loop] loop event on the final map ({slam.map.num_keyframes()} keyframes, "
+        f"{slam.map.num_points()} points), kernel launches and summed kernel time (ms, "
+        f"torch.profiler): " + json.dumps({k: [n, round(ms, 4)] for k, (n, ms) in cost.items()}))
+    return launches
+
+
 def main():
     import torch
 
@@ -673,20 +854,34 @@ def main():
          for mod, st in slam.timings().items()}))
     assert launches == N_FRAMES, f"{launches} fast_nms launches for {N_FRAMES} frames"
     assert n_kfs >= 2 and n_lba >= 1, (n_kfs, n_lba)
-    assert n_tracked >= 0.9 * N_FRAMES, n_tracked
+    assert n_tracked == N_FRAMES, f"{n_tracked}/{N_FRAMES} tracked"
     assert np.isfinite(poses).all() and ate < ATE_MAX, ate
     assert n_snap >= 1 and integ.volume.num_integrated == n_snap, \
         (n_snap, integ.volume.num_integrated)
     assert n_vox > 0, n_vox
     assert load <= LOAD_MAX and drop <= DROP_MAX, (load, drop)
     assert integ.volume.table.tsdf.device.type == "cuda"
+    del slam, integ
+    torch.cuda.empty_cache()
 
     # ---------------------------------------------------------------- 8
+    t0 = time.perf_counter()
+    starts = range(0, LOOP_FRAMES, RENDER_CHUNK)
+    with ProcessPoolExecutor(max_workers=min(8, os.cpu_count() or 1),
+                             mp_context=multiprocessing.get_context("spawn")) as pool:
+        loop_frames = [f for chunk in pool.map(
+            render_loop_frames, starts, [min(a + RENDER_CHUNK, LOOP_FRAMES) for a in starts])
+            for f in chunk]
+    log(f"[loop] rendered {LOOP_FRAMES} stereo frames {H}x{W} in "
+        f"{time.perf_counter() - t0:.1f} s (worker processes)")
+    loop_launches = loop_phase(dev, (ds.w, ds.h, ds.fx, ds.fy, ds.cx, ds.cy), loop_frames)
+
     print(json.dumps({"kernels": [{
         "name": "fast_nms", "route": "cuda",
         "source": "pyslam_tpu_torch/csrc/fast_nms.cu",
         "replaces": "pyslam_tpu/ops/pallas_fast.py:95",
         "launches": launches, "launches_per_frame": launches / N_FRAMES,
+        "launches_loop_stage": loop_launches,
         "max_abs_err": max_err, "ms": kern_ms, "plain_ms": plain_ms,
         "bound_ms": work["bound_ms"], "bound_by": work["bound_by"], "library_ms": None,
         "before_ms": before_ms}]}))

@@ -6,9 +6,9 @@ Analog of the reference's static ``Parameters`` class
 
 Copied from ``pyslam_tpu/config_parameters.py``, keeping only the flags this
 package reads, with the same values. The flags of the subsystems not ported
-yet (loop closing, relocalization, semantics) come with the code that reads
-them; the thread/process, viewer, GTSAM and debug-file flags
-have no counterpart here.
+yet (semantics, the learned models) come with the code that reads them;
+the thread/process, viewer, GTSAM and debug-file flags have no counterpart
+here.
 """
 
 from __future__ import annotations
@@ -81,6 +81,32 @@ class Parameters:
     kLBAMaxCameras = 56          # >= window (20+1) + capped fixed set
     kLBAMaxPoints = 4096
     kLBAMaxObservations = 16384
+    kOptimizerGBAIterations = 15
+    kOptimizerPGOIterations = 30
+
+    # --------------------------------------------------------- loop closing
+    kUseLoopClosing = True
+    kLoopClosingMinNumConsistentGroups = 3  # consistency threshold (ref loop_closing.py:107)
+    kLoopClosingNumCovisiblesForCandidate = 10
+    kLoopClosingMinNumMatchedMapPoints = 40 # geometry check acceptance (ref :257)
+    kLoopClosingGeometryCheckerMinNumBoWMatches = 20
+    kLoopClosingTh2 = 10.0
+    kLoopDetectionMinFramesAfterLastDetection = 10
+    kLoopDetectionMinKeyframeDistance = 10  # candidate must be >= N keyframes old (temporal gate)
+    kSim3SolverRansacIterations = 300
+    kSim3SolverMinInliers = 20
+    kLoopClosingFeatureMatchRatioTest = 0.9  # ref :259
+    # direct-index gating depth for loop guided matching: pairs must share a
+    # vocabulary-tree ancestor ``depth - this`` levels down (reference DBoW
+    # di_levels; larger value = coarser gate / more candidate pairs)
+    kLoopClosingDirectIndexLevel = 3
+
+    # -------------------------------------------------------- relocalization
+    kRelocalizationMinPnPInliers = 15
+    kRelocalizationFinalMinNumInliers = 50  # accept relocalization with >=50 inliers
+    kRelocalizationPnPRansacIterations = 256
+    kRelocalizationFeatureMatchRatioTest = 0.75  # ref :270
+    kMaxReprojectionDistanceMapRelocalize = 5
 
     # -------------------------------------------------------------- stereo
     kStereoMatchingRowTolerance = 2.0       # rows tolerance for rectified match

@@ -1,0 +1,2 @@
+"""Loop closing: place recognition, geometric verification, map correction
+(port of ``pyslam_tpu/loop_closing/``, the bag-of-words detectors)."""

@@ -1,9 +1,14 @@
-"""SO(3)/SE(3) Lie-group operations on tensors (port of the SE(3) part of
-``pyslam_tpu/ops/lie.py``; Sim(3) comes with the loop-closing slice).
+"""SO(3)/SE(3)/Sim(3) Lie-group operations on tensors (port of
+``pyslam_tpu/ops/lie.py``).
 
 Every function takes leading batch dimensions.  Small-angle branches use the
-same Taylor expansions behind ``torch.where`` as the reference.  Twists are
-ordered [rho (translation), w (rotation)], as in g2o.
+same Taylor expansions behind ``torch.where`` as the reference: both branches
+are evaluated and only the denominators are guarded, so forward-mode
+Jacobians at zero (``torch.func.jvp``) go through the Taylor branches as
+they do in the reference's ``jax.jacfwd``.  Twists are ordered [rho (translation), w
+(rotation)], as in g2o; Sim(3) twists append sigma = log(scale).  3x3
+determinants and solves are closed forms (cofactors), which batch and
+differentiate without a linear-algebra library call.
 """
 
 from __future__ import annotations
@@ -149,3 +154,105 @@ def transform_points(T: torch.Tensor, pts: torch.Tensor) -> torch.Tensor:
     """Apply a (4, 4) transform to (..., N, 3) points."""
     R, t = T_to_rt(T)
     return pts @ R.transpose(-1, -2) + t[..., None, :]
+
+
+def project_to_SO3(M: torch.Tensor) -> torch.Tensor:
+    """Closest rotation to M (SVD projection with the determinant fixed)."""
+    U, _, Vh = torch.linalg.svd(M)
+    det = det3(U @ Vh)
+    one = torch.ones_like(det)
+    D = torch.stack([one, one, det], -1)
+    return (U * D[..., None, :]) @ Vh
+
+
+# ----------------------------------------------------------------- Sim(3)
+
+def det3(M: torch.Tensor) -> torch.Tensor:
+    """Determinant of (..., 3, 3) matrices by cofactor expansion."""
+    a, b, c = M[..., 0, 0], M[..., 0, 1], M[..., 0, 2]
+    d, e, f = M[..., 1, 0], M[..., 1, 1], M[..., 1, 2]
+    g, h, i = M[..., 2, 0], M[..., 2, 1], M[..., 2, 2]
+    return a * (e * i - f * h) - b * (d * i - f * g) + c * (d * h - e * g)
+
+
+def solve3(M: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Solve (..., 3, 3) x = (..., 3) by Cramer's rule."""
+    c0, c1, c2 = M[..., :, 0], M[..., :, 1], M[..., :, 2]
+
+    def det_cols(u, v, w):
+        return det3(torch.stack([u, v, w], -1))
+
+    return torch.stack([det_cols(b, c1, c2), det_cols(c0, b, c2), det_cols(c0, c1, b)],
+                       -1) / det3(M)[..., None]
+
+
+def _cbrt(x: torch.Tensor) -> torch.Tensor:
+    return torch.sign(x) * torch.abs(x).pow(1.0 / 3.0)
+
+
+def sim3_exp(xi: torch.Tensor) -> torch.Tensor:
+    """sim(3) [rho(3), w(3), sigma(1)] -> (..., 4, 4) [sR t; 0 1]."""
+    rho, w, sigma = xi[..., :3], xi[..., 3:6], xi[..., 6]
+    s = torch.exp(sigma)
+    R = so3_exp(w)
+    t = (_sim3_W(w, sigma) @ rho[..., None])[..., 0]
+    return srt_to_S(s, R, t)
+
+
+def srt_to_S(s: torch.Tensor, R: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    return rt_to_T(s[..., None, None] * R, t)
+
+
+def S_to_srt(S: torch.Tensor):
+    """(..., 4, 4) Sim(3) -> (s, R, t)."""
+    sR = S[..., :3, :3]
+    s = _cbrt(det3(sR))
+    return s, sR / s[..., None, None], S[..., :3, 3]
+
+
+def sim3_inv(S: torch.Tensor) -> torch.Tensor:
+    s, R, t = S_to_srt(S)
+    Rt = R.transpose(-1, -2)
+    s_inv = 1.0 / s
+    return srt_to_S(s_inv, Rt, -s_inv[..., None] * (Rt @ t[..., None])[..., 0])
+
+
+def sim3_transform_points(S: torch.Tensor, pts: torch.Tensor) -> torch.Tensor:
+    return pts @ S[..., :3, :3].transpose(-1, -2) + S[..., :3, 3][..., None, :]
+
+
+def sim3_log(S: torch.Tensor) -> torch.Tensor:
+    """(..., 4, 4) -> [rho, w, sigma], the inverse of ``sim3_exp``."""
+    s, R, t = S_to_srt(S)
+    sigma = torch.log(s)
+    w = so3_log(R)
+    rho = solve3(_sim3_W(w, sigma), t)
+    return torch.cat([rho, w, sigma[..., None]], -1)
+
+
+def _sim3_W(w: torch.Tensor, sigma: torch.Tensor) -> torch.Tensor:
+    """Translation block of the Sim(3) exponential, W = A0 I + a hat(w) +
+    b hat(w)^2, with the Taylor limits of the reference for small theta
+    and/or small sigma (guarded denominators only, both branches evaluated).
+    """
+    s = torch.exp(sigma)
+    theta2 = torch.sum(w * w, -1)
+    theta = torch.sqrt(theta2 + _EPS * _EPS)
+    W = hat(w)
+    W2 = W @ W
+    small_sigma = torch.abs(sigma) < 1e-5
+    small_theta = theta2 < 1e-10
+    one = torch.ones_like(sigma)
+    ssig = torch.where(small_sigma, one, sigma)
+    ssig2 = ssig * ssig
+    A0 = torch.where(small_sigma, 1.0 + sigma / 2.0, (s - 1.0) / ssig)
+    denom = sigma * sigma + theta2
+    sin_t, cos_t = torch.sin(theta), torch.cos(theta)
+    a_big = (s * sin_t * sigma + (1.0 - s * cos_t) * theta) / (theta * denom)
+    b_big = (A0 - ((s * cos_t - 1.0) * sigma + s * sin_t * theta) / denom) / torch.where(
+        small_theta, one, theta2)
+    a_small = torch.where(small_sigma, 0.5 * one, (s * sigma + 1.0 - s) / ssig2)
+    b_small = torch.where(small_sigma, one / 6.0, (A0 + s * sigma / 2.0 - s) / ssig2)
+    a = torch.where(small_theta, a_small, a_big)
+    b = torch.where(small_theta, b_small, b_big)
+    return A0[..., None, None] * _eye3(w) + a[..., None, None] * W + b[..., None, None] * W2

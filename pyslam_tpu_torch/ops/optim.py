@@ -1,6 +1,6 @@
-"""Levenberg-Marquardt pose optimisation and bundle adjustment with an exact
-Schur complement (port of ``pyslam_tpu/ops/optim.py:36-446``; Sim(3) and
-pose-graph optimisation come with the loop-closing slice).
+"""Levenberg-Marquardt pose optimisation, bundle adjustment with an exact
+Schur complement, Sim(3) refinement and the Sim(3) pose graph (port of
+``pyslam_tpu/ops/optim.py``).
 
 - Observations are flat arrays ``(cam_idx, pt_idx, uv, ur, sigma2, valid)``;
   invalid slots carry zero weight.
@@ -10,6 +10,11 @@ pose-graph optimisation come with the loop-closing slice).
   solved densely after Jacobi equilibration.
 - Accept/reject decisions stay on the device (``torch.where``), so a run of
   LM iterations needs no host synchronisation.
+- The Sim(3) solvers take their Jacobians by forward-mode differentiation
+  at a zero increment, as the reference's ``jax.jacfwd`` does: one
+  ``torch.func.jvp`` whose 7 tangent directions are a real leading batch
+  dimension (0-dimensional dual numbers would promote python scalars to
+  float64 in the tangents).
 """
 
 from __future__ import annotations
@@ -278,3 +283,141 @@ def bundle_adjust(problem: BAProblem, iters: int = 10, use_robust: bool = True,
         inl = ba_outlier_mask(problem._replace(poses=poses, points=points))
         return poses, points, cost, lam, inl
     return poses, points, cost
+
+
+# ---------------------------------------------------------------- Sim(3)
+
+def _jacobian7(fn, batch_shape, ref: torch.Tensor):
+    """(value at 0, Jacobian) of ``fn`` at a zero (*batch_shape, 7)
+    increment: value (*batch_shape, ...), Jacobian (*batch_shape, ..., 7)."""
+    zeros = torch.zeros((7, *batch_shape, 7), dtype=ref.dtype, device=ref.device)
+    basis = torch.eye(7, dtype=ref.dtype, device=ref.device)
+    basis = basis.reshape(7, *([1] * len(batch_shape)), 7).expand_as(zeros)
+    value, tangents = torch.func.jvp(fn, (zeros,), (basis,))
+    return value[0], torch.movedim(tangents, 0, -1)
+
+
+def _pixels(K, p):
+    z = torch.clamp(p[..., 2], min=1e-6)
+    return torch.stack([K[0, 0] * p[..., 0] / z + K[0, 2],
+                        K[1, 1] * p[..., 1] / z + K[1, 2]], -1)
+
+
+def optimize_sim3(S12, pts1_c1, pts2_c2, uv1, uv2, sigma2_1, sigma2_2, valid, K1, K2,
+                  chi2_th: float = 10.0, iters: int = 40, fix_scale: bool = False,
+                  inliers_init=None):
+    """Refine a relative Sim(3) S12 (cam-2 -> cam-1 coordinates) on mutual
+    reprojections: LM over both pixel residual sets with Huber IRLS weights
+    (frozen while differentiating), a Huber cost for accept/reject, and each
+    iteration the active set re-gated by both chi2 values (never shrinking
+    below min(its size, 10)).  ``inliers_init`` seeds the active set.
+    Returns (S12_opt, inlier mask, number of inliers)."""
+    if inliers_init is None:
+        inliers_init = valid
+    dt, dev = S12.dtype, S12.device
+    sim3_pts = lie.sim3_transform_points
+    delta = chi2_th ** 0.5
+    s2_1 = torch.clamp(sigma2_1, min=1e-12)
+    s2_2 = torch.clamp(sigma2_2, min=1e-12)
+    sd1 = torch.sqrt(s2_1)[:, None]
+    sd2 = torch.sqrt(s2_2)[:, None]
+    mask7 = torch.ones(7, dtype=dt, device=dev)
+    if fix_scale:
+        mask7[6] = 0.0
+    eye7 = torch.eye(7, dtype=dt, device=dev)
+
+    def chi2(S):
+        p1 = sim3_pts(S, pts2_c2)
+        p2 = sim3_pts(lie.sim3_inv(S), pts1_c1)
+        return (torch.sum((_pixels(K1, p1) - uv1) ** 2, -1) / s2_1,
+                torch.sum((_pixels(K2, p2) - uv2) ** 2, -1) / s2_2)
+
+    def rho(c):
+        rn = torch.sqrt(torch.clamp(c, min=1e-18))
+        return torch.where(c <= chi2_th, c, 2.0 * delta * rn - chi2_th)
+
+    S = S12
+    lam = torch.tensor(1e-4, dtype=dt, device=dev)
+    cost = torch.tensor(float("inf"), dtype=dt, device=dev)
+    inl = valid & inliers_init
+    for _ in range(iters):
+        def errors(xi, S=S):
+            Scur = lie.sim3_exp(xi * mask7) @ S
+            e1 = (_pixels(K1, sim3_pts(Scur, pts2_c2)) - uv1) / sd1
+            e2 = (_pixels(K2, sim3_pts(lie.sim3_inv(Scur), pts1_c1)) - uv2) / sd2
+            return torch.cat([e1, e2], -2)                           # (..., 2N, 2)
+
+        (e, Je) = _jacobian7(errors, (), S)                          # (2N, 2), (2N, 2, 7)
+        w_irls = torch.sqrt(torch.clamp(
+            delta / torch.clamp(torch.linalg.norm(e, dim=-1), min=1e-9), max=1.0))
+        w = w_irls * torch.cat([inl, inl]).to(dt)
+        r = (e * w[:, None]).reshape(-1)
+        J = (Je * w[:, None, None]).reshape(-1, 7)
+        H = J.T @ J + 1e-6 * eye7
+        if fix_scale:
+            H = H + eye7 * (1.0 - mask7)[:, None]
+        g = J.T @ r
+        D = torch.diag(torch.clamp(torch.diagonal(H), min=1e-6))
+        dx = -torch.linalg.solve_ex(H + lam * D, g)[0] * mask7
+        S_new = lie.sim3_exp(dx) @ S
+        c1, c2 = chi2(S_new)
+        new_cost = torch.sum((rho(c1) + rho(c2)) * inl.to(dt))
+        accept = new_cost < cost
+        S = torch.where(accept, S_new, S)
+        lam = torch.where(accept, torch.clamp(lam * 0.5, min=1e-9),
+                          torch.clamp(lam * 4.0, max=1e6))
+        cost = torch.where(accept, new_cost, cost)
+        c1, c2 = chi2(S)
+        inl_new = valid & (c1 < chi2_th) & (c2 < chi2_th)
+        keep = torch.sum(inl_new) >= torch.clamp(torch.sum(inl), max=10)
+        inl = torch.where(keep, inl_new, inl)
+    return S, inl, torch.sum(inl)
+
+
+def pose_graph_optimize(S, edges_i, edges_j, S_meas, edge_valid, fixed, iters: int = 20,
+                        fix_scale: bool = False):
+    """Sim(3) essential-graph optimisation: vertices S (V, 4, 4) world->
+    keyframe, edge residual log(S_meas S_j S_i^-1); Gauss-Newton on the dense
+    (7V, 7V) normal equations, ``fixed`` vertices held, and with
+    ``fix_scale`` every scale increment held (stereo and RGBD).  Returns
+    S_opt (V, 4, 4)."""
+    V = S.shape[0]
+    E = edges_i.shape[0]
+    dt, dev = S.dtype, S.device
+    ei = edges_i.to(torch.int64)
+    ej = edges_j.to(torch.int64)
+    w = edge_valid.to(dt)
+    fixed7 = torch.repeat_interleave(fixed, 7)
+    if fix_scale:
+        fixed7 = fixed7 | (torch.arange(V * 7, device=dev) % 7 == 6)
+    held = fixed7[:, None] | fixed7[None, :]
+    diag = torch.diag(torch.where(fixed7, 1.0, 1e-8).to(dt))
+    zero = torch.zeros((), dtype=dt, device=dev)
+
+    def edge_residual(eps_i, eps_j, Si, Sj):
+        Si_new = lie.sim3_exp(eps_i) @ Si
+        Sj_new = lie.sim3_exp(eps_j) @ Sj
+        return lie.sim3_log(S_meas @ Sj_new @ lie.sim3_inv(Si_new))
+
+    Scur = S
+    for _ in range(iters):
+        Si, Sj = Scur[ei], Scur[ej]
+        eps0 = torch.zeros((E, 7), dtype=dt, device=dev)
+        r, Ji = _jacobian7(lambda e: edge_residual(e, eps0, Si, Sj), (E,), S)
+        _, Jj = _jacobian7(lambda e: edge_residual(eps0, e, Si, Sj), (E,), S)
+        Jiw = Ji * w[:, None, None]
+        Jjw = Jj * w[:, None, None]
+        Hf49 = torch.zeros((V * V, 49), dtype=dt, device=dev)
+        for a, b, Ja_w, Jb in ((ei, ei, Jiw, Ji), (ej, ej, Jjw, Jj), (ei, ej, Jiw, Jj),
+                               (ej, ei, Jjw, Ji)):
+            Hf49.index_add_(0, a * V + b, torch.einsum("eij,eik->ejk", Ja_w, Jb).reshape(-1, 49))
+        H = Hf49.reshape(V, V, 7, 7).permute(0, 2, 1, 3).reshape(V * 7, V * 7)
+        g = torch.zeros((V, 7), dtype=dt, device=dev)
+        g.index_add_(0, ei, torch.einsum("eij,ei->ej", Jiw, r))
+        g.index_add_(0, ej, torch.einsum("eij,ei->ej", Jjw, r))
+        Hf = torch.where(held, zero, H) + diag
+        rhs = torch.where(fixed7, zero, -g.reshape(-1))
+        dx = torch.linalg.solve_ex(Hf, rhs)[0].reshape(V, 7)
+        S_new = lie.sim3_exp(dx) @ Scur
+        Scur = torch.where(fixed[:, None, None], Scur, S_new)
+    return Scur

@@ -53,6 +53,9 @@ class MapPointStorage:
             getattr(self, name)[: old["capacity"]] = old[name]
         self.size = old["size"]
 
+    def alive_ids(self) -> np.ndarray:
+        return np.nonzero(self.valid[: self.size])[0]
+
     def new_points(self, n: int) -> np.ndarray:
         while self.size + n > self.capacity:
             self._grow()

@@ -6,9 +6,10 @@ with ``track()``, ``finish()``, ``get_final_trajectory()``, ``timings()``
 and ``set_volumetric_integrator()``.  The host drives everything in one
 thread: ``track()`` harvests finished back-end work, tracks the frame,
 snapshots a new keyframe's images for the volumetric integrator, advances
-local mapping by a bounded slice and issues one integrator stage; the
-device queue gives the overlap.  The loop detector is not ported yet, and
-only the stereo sensor is.
+local mapping by a bounded slice, services loop closing (one keyframe's
+detection, or a poll of the asynchronous GBA) and issues one integrator
+stage; the device queue gives the overlap.  Only the stereo sensor is
+ported.
 """
 
 from __future__ import annotations
@@ -19,6 +20,7 @@ from pyslam_tpu_torch.config_parameters import Parameters
 from pyslam_tpu_torch.features.tracker import FeatureTrackerConfig, feature_tracker_factory
 from pyslam_tpu_torch.features.types import FEATURE_INFO
 from pyslam_tpu_torch.io.dataset_types import SensorType
+from pyslam_tpu_torch.loop_closing.loop_closing import LoopClosing
 from pyslam_tpu_torch.slam.camera import PinholeCamera
 from pyslam_tpu_torch.slam.frame import Frame
 from pyslam_tpu_torch.slam.local_mapping import LocalMapping
@@ -33,8 +35,6 @@ class Slam:
                  feature_tracker_config: FeatureTrackerConfig | str = "ORB2",
                  loop_detector_config=None, sensor_type: SensorType = SensorType.STEREO, *,
                  device: torch.device | str = "cuda"):
-        if loop_detector_config is not None:
-            raise NotImplementedError("loop closing is not ported yet")
         if sensor_type != SensorType.STEREO:
             raise NotImplementedError(f"{sensor_type.name} tracking is not ported yet")
         self.camera = camera
@@ -54,6 +54,16 @@ class Slam:
         self._prefetched = None   # (frame_id, Frame) built during the last call
         self.volumetric_integrator = None
         self._last_input = None   # (frame_id, (img, img_right)) of the last call
+        self.loop_closing = None
+        self.GBA = None
+        if loop_detector_config is not None and Parameters.kUseLoopClosing:
+            self.loop_closing = LoopClosing(self.map, camera, self.feature_tracker,
+                                            loop_detector_config, sensor_type=sensor_type,
+                                            device=self.device)
+            self.local_mapping.loop_closing = self.loop_closing
+            self.loop_closing.local_mapping = self.local_mapping
+            self.tracking.relocalizer = self.loop_closing.relocalizer
+            self.GBA = self.loop_closing.gba   # the asynchronous post-loop GBA
 
     def track(self, img, img_right=None, frame_id=0, timestamp=0.0,
               next_input: dict | None = None):
@@ -104,6 +114,8 @@ class Slam:
                 vi.offer_keyframe_data(kf, intensity=imgs[0], img_right=imgs[1])
         self._last_input = (frame_id, (img, img_right))
         self.local_mapping.step_async()
+        if self.loop_closing is not None:
+            self.loop_closing.step()
         if vi is not None:
             vi.step()   # at most one integration stage a frame
         return frame
@@ -111,12 +123,17 @@ class Slam:
     def finish(self):
         """Drain all queued back-end work, the integrator's last."""
         self.local_mapping.finish()
+        if self.loop_closing is not None:
+            self.loop_closing.finish()
         if self.volumetric_integrator is not None:
             self.volumetric_integrator.run_all()
 
     def timings(self) -> dict:
         out = {"tracking": self.tracking.timings.report(),
                "local_mapping": self.local_mapping.timings.report()}
+        if self.loop_closing is not None:
+            out["loop_closing"] = self.loop_closing.timings.report()
+            out["gba"] = self.loop_closing.gba.timings.report()
         if self.volumetric_integrator is not None:
             out["volumetric_integrator"] = self.volumetric_integrator.timings.report()
         return out
@@ -145,6 +162,9 @@ class Slam:
         self.tracking.state = TrackingState.NO_IMAGES_YET
         self.tracking.initializer.reset()
         self.tracking.motion_model.reset()
+        if self.loop_closing is not None:
+            self.loop_closing.map = self.map
+            self.loop_closing.reset()
         if self.volumetric_integrator is not None:
             self.volumetric_integrator.reset()
 

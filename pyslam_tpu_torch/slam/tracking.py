@@ -12,8 +12,12 @@ Per frame on the OK path:
   4. keyframe decision and creation (stereo: spawn close points).
 
 The state machine is host Python; every numeric stage runs on the device of
-the feature tracker.  Relocalisation needs the loop-closing slice: without
-a relocaliser a lost frame stays lost (as in the reference).
+the feature tracker.  Each frame is predicted from the previous frame
+re-anchored to its reference keyframe (``_update_last_frame``, ORB-SLAM's
+UpdateLastFrame: the one place the port's tracking departs from the
+reference).  A lost frame is relocalised by the relocaliser that ``Slam``
+sets from its loop closing; without one (no loop detector) it stays lost,
+as in the reference.
 """
 
 from __future__ import annotations
@@ -422,6 +426,7 @@ class Tracking:
         """OK/LOST state logic for one frame."""
         fused_ok = False
         if self.state == TrackingState.OK:
+            self._update_last_frame()
             f_cur.update_pose(self._predict())
             out = None
             if (Parameters.kUseFusedTrackingStep and Parameters.kUseSearchFrameByProjection
@@ -490,6 +495,25 @@ class Tracking:
             self.num_lost_frames = 0
         self.f_prev = f_cur
         return f_cur
+
+    def _update_last_frame(self):
+        """Re-anchor the previous frame to its reference keyframe (ORB-SLAM's
+        UpdateLastFrame): its pose, and the motion model's last pose, keep
+        the pose relative to that keyframe they had when it was tracked,
+        wherever local BA, a loop correction or a GBA has moved the keyframe
+        since.  The reference predicts from the stale pose; after a loop
+        correction (metres) and the local BA that follows it that loses
+        tracking (ROADMAP.md section 3)."""
+        h = self.history
+        if self.f_prev is None or not h.timestamps or h.timestamps[-1] != self.f_prev.timestamp:
+            return
+        kf = self.map.keyframes.get(h.ref_kids[-1])
+        if kf is None:
+            return
+        T = h.relative_poses[-1] @ kf.Tcw
+        self.f_prev.update_pose(T)
+        if self.motion_model._last_Tcw is not None:
+            self.motion_model._last_Tcw = T.copy()
 
     def _relocalize(self, f_cur: Frame) -> bool:
         if self.relocalizer is None:

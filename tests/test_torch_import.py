@@ -16,6 +16,7 @@ def test_import_loads_no_jax():
         "import sys, pyslam_tpu_torch, pyslam_tpu_torch.slam.slam, pyslam_tpu_torch.interop\n"
         "import pyslam_tpu_torch.dense.volumetric_integrator, pyslam_tpu_torch.dense.marching\n"
         "import pyslam_tpu_torch.depth_estimation.depth_estimator\n"
+        "import pyslam_tpu_torch.loop_closing.loop_closing, pyslam_tpu_torch.ops.pnp\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
         "or m == 'pyslam_tpu' or m.startswith('pyslam_tpu.')]\n"
         "assert not bad, bad\n"
@@ -64,7 +65,15 @@ def test_import_builds_nothing():
                                   "depth_estimation.depth_estimator.depth_estimator_factory",
                                   "dense.volumetric_integrator.VolumetricIntegrator",
                                   "dense.volumetric_integrator.volumetric_integrator_factory",
-                                  "interop.voxel_table_from_numpy"])
+                                  "interop.voxel_table_from_numpy",
+                                  "loop_closing.loop_closing.LoopClosing",
+                                  "loop_closing.loop_closing.LoopDetector",
+                                  "loop_closing.relocalizer.Relocalizer",
+                                  "loop_closing.vocabulary.HierarchicalVocabulary",
+                                  "loop_closing.vocabulary.BinaryVocabulary",
+                                  "slam.global_bundle_adjustment.AsyncGBA",
+                                  "slam.global_bundle_adjustment.build_full_problem",
+                                  "slam.global_bundle_adjustment.global_bundle_adjustment"])
 def test_entry_points_default_to_the_card(name):
     """The entry points run on the card unless the caller asks for the CPU;
     ``device`` is keyword-only."""
@@ -76,3 +85,55 @@ def test_entry_points_default_to_the_card(name):
     param = inspect.signature(obj).parameters["device"]
     assert param.default == "cuda"
     assert param.kind is inspect.Parameter.KEYWORD_ONLY
+
+
+def test_loop_closing_slam_runs_on_the_card():
+    """``Slam(..., loop_detector_config="DBOW3")`` without a device builds
+    its loop closing on the card, and without one it refuses to start
+    rather than carry on on the CPU."""
+    import torch
+
+    from pyslam_tpu_torch.features.tracker import FeatureTrackerConfig
+    from pyslam_tpu_torch.io.dataset_types import SensorType
+    from pyslam_tpu_torch.slam.camera import PinholeCamera
+    from pyslam_tpu_torch.slam.slam import Slam
+
+    cam = PinholeCamera(320, 240, 200.0, 200.0, 160.0, 120.0, bf=40.0)
+    cfg = FeatureTrackerConfig(num_features=300, num_levels=3)
+    if torch.cuda.is_available():
+        slam = Slam(cam, cfg, loop_detector_config="DBOW3", sensor_type=SensorType.STEREO)
+        assert slam.loop_closing.device.type == "cuda"
+        assert slam.loop_closing.relocalizer.device.type == "cuda"
+        assert slam.GBA.device.type == "cuda"
+    else:
+        with pytest.raises((RuntimeError, AssertionError)):
+            Slam(cam, cfg, loop_detector_config="DBOW3", sensor_type=SensorType.STEREO)
+
+
+@pytest.mark.parametrize("preset", ["VLAD", "SAD", "NETVLAD", "COSPLACE", "EIGENPLACES",
+                                    "MEGALOC", "ALEXNET", "HDC_DELF", "PRETRAINED"])
+def test_detector_refuses_what_is_not_ported(preset):
+    """The learned VPR, VLAD and SAD detectors and the pretrained
+    vocabulary raise NotImplementedError; the BoW presets build."""
+    import dataclasses
+
+    from pyslam_tpu_torch.loop_closing.loop_closing import LoopDetector
+    from pyslam_tpu_torch.loop_closing.loop_detector_configs import (
+        LoopDetectorConfigs, LoopDetectorVocabularyType)
+
+    if preset == "PRETRAINED":
+        cfg = dataclasses.replace(LoopDetectorConfigs.DBOW3,
+                                  vocabulary_type=LoopDetectorVocabularyType.PRETRAINED)
+    else:
+        cfg = LoopDetectorConfigs.get(preset)
+    with pytest.raises(NotImplementedError):
+        LoopDetector(cfg, device="cpu")
+
+
+@pytest.mark.parametrize("preset", ["DBOW2", "DBOW3", "DBOW3_INDEPENDENT", "IBOW"])
+def test_detector_builds_bow_presets(preset):
+    from pyslam_tpu_torch.loop_closing.loop_closing import LoopDetector
+    from pyslam_tpu_torch.loop_closing.loop_detector_configs import LoopDetectorConfigs
+
+    det = LoopDetector(LoopDetectorConfigs.get(preset), device="cpu")
+    assert det.vocabulary.device.type == "cpu"

@@ -50,3 +50,30 @@ def synth_image(r: np.random.Generator, h: int = 240, w: int = 320, n_blobs: int
         bw = r.integers(6, 24)
         img[y : y + bh, x : x + bw] = r.uniform(120, 250)
     return img
+
+
+class JaxKeySampler:
+    """Minimal samples as the JAX package draws them: one split of a
+    ``PRNGKey(seed)`` per call, then its ``_sample_minimal`` with x64 off (as
+    ``LoopClosing.geometry_check`` and ``Relocalizer.relocalize`` split
+    theirs).  The port's ``LoopClosing`` and ``Relocalizer`` take it as
+    ``sampler``, so both packages solve from the same minimal sets."""
+
+    def __init__(self, seed: int):
+        import jax
+
+        self.key = jax.random.PRNGKey(seed)
+        self.calls = 0
+
+    def __call__(self, valid, num_hyp, sample_size, weights=None):
+        import jax
+        import jax.numpy as jnp
+
+        from pyslam_tpu.ops.epipolar import _sample_minimal
+
+        with jax.enable_x64(False):
+            self.key, k = jax.random.split(self.key)
+            s = _sample_minimal(k, jnp.asarray(np_(valid)), num_hyp, sample_size,
+                                weights=None if weights is None else jnp.asarray(np_(weights)))
+        self.calls += 1
+        return torch.from_numpy(np.asarray(s).astype(np.int64)).to(valid.device)
