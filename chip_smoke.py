@@ -50,7 +50,29 @@ Phases (one line each, and any failure exits non-zero):
      cost:
      kernel launches and summed kernel time (torch.profiler) of one
      geometry check, one correction (without its GBA), its pose graph alone,
-     a GBA dispatch (problem and first chunk) and a GBA chunk.
+     a GBA dispatch (problem and first chunk) and a GBA chunk;
+  9. the RGBD stage: the 60 frames of phase 7's stream as left image and
+     sensor depth through Slam(sensor_type=RGBD).track() with next-frame
+     prefetch, bf = fx * 0.54 for the virtual right coordinates, and the
+     TSDF integrator of phase 7 on the sensor depth (no SGM); asserts 60/60
+     tracked, one fast_nms launch a frame, every keyframe integrated and ATE
+     under the ceiling; prints FPS, p50 / p95 latency, keyframes, the load
+     factor and the peak device memory;
+ 10. the monocular stage: the same 60 left images through
+     Slam(sensor_type=MONOCULAR).track(); asserts initialisation no later
+     than the JAX package's frame on the CPU plus a margin (MONO_*), every
+     frame tracked from then on, one fast_nms launch a frame and ATE after a
+     similarity alignment under the ceiling; prints what phase 9 prints and
+     the initialising frame's latency;
+ 11. both visual odometries on those 60 frames (VisualOdometry with the
+     ground-truth scale, VisualOdometryRgbd with 2000 corners): FPS, p50,
+     ATE under their CPU floors, one fast_nms launch a frame; then, card
+     against CPU on frames 0-1: compute_stereo_from_rgbd identical,
+     find_essential + recover_pose from the same minimal samples, LK within
+     1e-2 px; the launches and kernel time of one LK call, one
+     find_essential + recover_pose and one monocular initialisation; and
+     the kernel as these paths call it (the B = 1 pyramid, the threshold-15
+     level) bit-equal to its plain version, timed beside its bound.
 It ends with a JSON line of kernel results, the card's name and power limit,
 and, last, {"ok": true, "device": {...}}.
 """
@@ -119,6 +141,16 @@ LOOP_FRAMES, LOOP_PERIOD = 150, 130
 LOOP_SKIP = 8          # latency percentiles over frames 8.. (bench.py:251)
 RELOC_FRAME = 60       # relocalised against the final map after the stage
 RENDER_CHUNK = 10
+# phases 9-11: the main stage's stream as RGBD (left image and its depth)
+# and monocular (left image), and the visual odometries on it
+VO_FAST_TH = 15.0      # the RGBD VO's FAST threshold (visual_odometry_rgbd.py)
+# the JAX package on the monocular line (python -m tests.torch_sensor_stage
+# --package jax --sensor mono, CPU, x64 off) initialises at frame 34; the
+# port may take one more advance of the reference frame (every 10 failures)
+MONO_REF_INIT_FRAME, MONO_INIT_MARGIN = 34, 10
+# the floors of the visual odometries' CPU tests (tests/test_vo.py,
+# tests/test_lk_vo_rgbd.py)
+VO_MONO_ATE_MAX, VO_RGBD_ATE_MAX = 0.4, 0.35
 
 
 def log(msg):
@@ -147,14 +179,16 @@ def band_image(rng, band=32):
     return img + rng.uniform(0.0, 2.0, (h, w)).astype(np.float32)
 
 
-def bench_stream():
+def bench_stream(sensor="STEREO"):
+    """The main stage's stream; ``sensor`` (STEREO, RGBD, MONOCULAR) sets
+    which images it renders beside the left one."""
     from pyslam_tpu_torch.io.dataset_types import SensorType
     from pyslam_tpu_torch.io.synthetic import SyntheticDataset, SyntheticWorld
 
     extent = max(60.0, (N_FRAMES * 0.8 + 30.0) / 1.4)
     world = SyntheticWorld(n_points=16000, extent=extent, depth_range=(4.0, 80.0))
     return SyntheticDataset(num_frames=N_FRAMES, h=H, w=W, fx=FX, baseline=BASELINE_M,
-                            trajectory="line", step=0.8, sensor_type=SensorType.STEREO,
+                            trajectory="line", step=0.8, sensor_type=SensorType[sensor],
                             world=world)
 
 
@@ -173,6 +207,22 @@ def render_loop_frames(first, last):
     ds = loop_stream()
     return [(ds.getImage(i), ds.getImageRight(i), ds.getTimestamp(i))
             for i in range(first, last)]
+
+
+def render_rgbd_frames(first, last):
+    """Frames [first, last) of the main stage's stream as RGBD: (left,
+    depth, timestamp) (a worker process)."""
+    ds = bench_stream("RGBD")
+    return [(ds.getImage(i), ds.getDepth(i), ds.getTimestamp(i)) for i in range(first, last)]
+
+
+def render(fn, n):
+    """fn's frames [0, n) rendered in chunks by up to 8 worker processes."""
+    starts = range(0, n, RENDER_CHUNK)
+    with ProcessPoolExecutor(max_workers=min(8, os.cpu_count() or 1),
+                             mp_context=multiprocessing.get_context("spawn")) as pool:
+        return [f for chunk in pool.map(fn, starts, [min(a + RENDER_CHUNK, n) for a in starts])
+                for f in chunk]
 
 
 def median_ms(fn, n=20):
@@ -661,6 +711,315 @@ def loop_phase(dev, cam_args, frames):
     return launches
 
 
+def sensor_stage(dev, sensor, frames, cam, ds, integ=None):
+    """Phases 9 and 10: the main stage's stream through Slam.track() as RGBD
+    (left image and depth) or monocular (left image), with next-frame
+    prefetch, then finish().  Returns the stage's numbers."""
+    import torch
+
+    from pyslam_tpu_torch.evaluation.metrics import eval_ate
+    from pyslam_tpu_torch.features.tracker import FeatureTrackerConfig
+    from pyslam_tpu_torch.io.dataset_types import SensorType
+    from pyslam_tpu_torch.ops import epipolar
+    from pyslam_tpu_torch.ops.fast import fast_nms
+    from pyslam_tpu_torch.slam.slam import Slam
+
+    mono = sensor == "MONOCULAR"
+    tag = "[mono]" if mono else "[rgbd]"
+    slam = Slam(cam, FeatureTrackerConfig(num_features=N_FEATURES, num_levels=N_LEVELS),
+                sensor_type=SensorType[sensor], device=dev)
+    if integ is not None:
+        slam.set_volumetric_integrator(integ)
+    # record the initialiser's minimal samples (its default draws), so that
+    # the initialising attempt can be replayed and profiled after the stage
+    draws = []
+    sample = epipolar.generator_sampler(dev, 42)
+
+    def recording_sampler(*args):
+        draws.append(sample(*args))
+        return draws[-1]
+
+    slam.tracking.initializer.sampler = recording_sampler
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fast_nms.launches = 0
+    lats, init_frame, ref_frame, init_samples, t_start = [], None, None, None, None
+    n = len(frames)
+    for i, (img, depth, ts) in enumerate(frames):
+        if i == 10:
+            t_start = time.perf_counter()
+        nxt = None
+        if i + 1 < n:
+            nxt = {"img": frames[i + 1][0], "frame_id": i + 1, "timestamp": frames[i + 1][2],
+                   "depth": None if mono else frames[i + 1][1]}
+        n_hist = len(slam.tracking.history.timestamps)
+        t1 = time.perf_counter()
+        slam.track(img, depth=None if mono else depth, frame_id=i, timestamp=ts,
+                   next_input=nxt)
+        lats.append(time.perf_counter() - t1)
+        if init_frame is None and len(slam.tracking.history.timestamps) > n_hist:
+            init_frame = i
+            ref = slam.tracking.initializer.ref_frame
+            ref_frame = ref.id if mono and ref is not None else i
+            init_samples = draws[-1] if mono else None
+            log(f"{tag} frame {i}: map initialised in a {lats[-1] * 1e3:.1f} ms frame, "
+                f"{slam.map.num_keyframes()} keyframes, {slam.map.num_points()} points")
+        if i % 10 == 0:
+            log(f"{tag} frame {i}: {lats[-1] * 1e3:.1f} ms, {slam.map.num_keyframes()} "
+                f"keyframes, {slam.map.num_points()} points")
+    slam.finish()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t_start
+    out = dict(launches=fast_nms.launches, init_frame=init_frame, ref_frame=ref_frame,
+               peak_mb=torch.cuda.max_memory_allocated() / 2**20,
+               n_tracked=len(slam.tracking.history.timestamps),
+               keyframes=slam.map.num_keyframes(), points=slam.map.num_points(),
+               fps=(n - 10) / wall)
+    ts_est, poses = slam.get_final_trajectory()
+    gt_t = np.asarray([ds.getTimestamp(i) for i in range(n)])
+    out["ate"] = float(eval_ate(ts_est, poses[:, :3, 3], gt_t, ds.poses[:n, :3, 3],
+                                align=True, with_scale=mono).rmse)
+    lat_ms = np.asarray(lats[10:]) * 1e3
+    out["p50_ms"], out["p95_ms"] = np.percentile(lat_ms, 50), np.percentile(lat_ms, 95)
+    out["init_frame_ms"] = lats[init_frame] * 1e3 if init_frame is not None else None
+    log(f"{tag} {out['fps']:.2f} FPS over frames 10-{n - 1} (incl. final drain), latency "
+        f"p50 {out['p50_ms']:.1f} ms p95 {out['p95_ms']:.1f} ms; initialised at frame "
+        f"{init_frame}; {out['n_tracked']}/{n} tracked, {out['keyframes']} keyframes, "
+        f"{out['points']} points, {slam.local_mapping.lba_applied} local BAs applied, ATE "
+        f"{out['ate']:.4f} m{' (similarity alignment)' if mono else ''}; fast_nms launches "
+        f"{out['launches']}; peak device memory {out['peak_mb']:.1f} MiB")
+    if integ is not None:
+        n_vox = integ.volume.num_voxels()
+        out.update(snapshots=len(integ.snapshots), integrated=integ.volume.num_integrated,
+                   voxels=n_vox, load=n_vox / integ.volume.capacity)
+        log(f"{tag} dense (sensor depth, no SGM): {out['snapshots']} keyframes handed over, "
+            f"{out['integrated']} integrated, {n_vox} voxels, load factor {out['load']:.4f}")
+    log(f"{tag} stage totals: " + json.dumps(
+        {mod: {k: round(v["total_ms"], 1) for k, v in st.items()}
+         for mod, st in slam.timings().items()}))
+    assert slam.map.device.type == "cuda"
+    return out, slam, init_samples
+
+
+def vo_phase(dev, frames, cam, ds):
+    """Phase 11: both visual odometries on the stream, each frame timed on
+    the host; returns their numbers."""
+    import torch
+
+    from pyslam_tpu_torch.evaluation.metrics import eval_ate
+    from pyslam_tpu_torch.features.tracker import FeatureTrackerConfig, feature_tracker_factory
+    from pyslam_tpu_torch.io.ground_truth import groundtruth_factory
+    from pyslam_tpu_torch.ops.fast import fast_nms
+    from pyslam_tpu_torch.slam.visual_odometry import VisualOdometry
+    from pyslam_tpu_torch.slam.visual_odometry_rgbd import VisualOdometryRgbd
+
+    n = len(frames)
+    gt = groundtruth_factory({"type": "synthetic", "dataset": ds})
+    tracker = feature_tracker_factory(FeatureTrackerConfig(num_features=N_FEATURES,
+                                                           num_levels=N_LEVELS), device=dev)
+    out = {}
+    for name, vo in (("mono", VisualOdometry(cam, tracker, groundtruth=gt)),
+                     ("rgbd", VisualOdometryRgbd(cam, num_features=N_FEATURES, device=dev))):
+        torch.cuda.synchronize()
+        fast_nms.launches = 0
+        lats = []
+        t0 = time.perf_counter()
+        for i, (img, depth, ts) in enumerate(frames):
+            t1 = time.perf_counter()
+            if name == "mono":
+                vo.track(img, i, ts)
+            else:
+                vo.track(img, depth, i, ts)
+            lats.append(time.perf_counter() - t1)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        ate = float(eval_ate(np.asarray(vo.timestamps), vo.trajectory, gt.timestamps,
+                             gt.positions[:n], align=True, with_scale=False).rmse)
+        out[name] = dict(launches=fast_nms.launches, fps=n / wall, ate=ate,
+                         p50_ms=float(np.percentile(np.asarray(lats[1:]) * 1e3, 50)), vo=vo)
+        log(f"[vo] {name}: {out[name]['fps']:.2f} FPS over {n} frames, latency p50 "
+            f"{out[name]['p50_ms']:.1f} ms, ATE {ate:.4f} m, fast_nms launches "
+            f"{out[name]['launches']}")
+    return out, tracker
+
+
+def card_vs_cpu(dev, frames, cam, tracker):
+    """Phase 11's comparisons on one frame pair, card against CPU: the RGBD
+    virtual right coordinates, the essential matrix and pose with the same
+    minimal samples, LK; and the device cost (launches, kernel ms) of one LK
+    call at 2000 points and one find_essential + recover_pose."""
+    import torch
+
+    from pyslam_tpu_torch.config_parameters import Parameters
+    from pyslam_tpu_torch.ops import epipolar, fast, lk, nms
+    from pyslam_tpu_torch.slam.frame import Frame, compute_stereo_from_rgbd
+    from pyslam_tpu_torch.utils.padding import pad_bucket, pad_rows
+
+    (img0, depth0, _), (img1, _, _) = frames[0], frames[1]
+    f0 = Frame(cam, img0, depth=depth0, feature_tracker=tracker, frame_id=0)
+    cpu = torch.device("cpu")
+    kps, raw, valid = f0.dev("kps"), torch.as_tensor(f0.kps_raw).to(dev), f0.dev("valid")
+    d0 = torch.as_tensor(depth0).to(dev)
+    got = compute_stereo_from_rgbd(kps, raw, valid, d0, cam.bf, Parameters.kMinDepth)
+    ref = compute_stereo_from_rgbd(kps.to(cpu), raw.to(cpu), valid.to(cpu), d0.to(cpu), cam.bf,
+                                   Parameters.kMinDepth)
+    for a, b in zip(got, ref):
+        assert torch.equal(a.cpu(), b), "compute_stereo_from_rgbd differs on the card"
+    log(f"[card-cpu] compute_stereo_from_rgbd identical on the card and the CPU "
+        f"({int((got[1] > 0).sum())} keypoints with depth)")
+
+    # the essential matrix of the monocular pair 0 -> 1, the same samples
+    fa, fb = tracker.detectAndCompute(img0), tracker.detectAndCompute(img1)
+    i1, i2 = tracker.match(fa, fb)
+    xa, xb = fa.xy.cpu().numpy()[i1], fb.xy.cpu().numpy()[i2]
+    xy1, pvalid = pad_bucket(np.asarray(cam.unproject_points(xa)))
+    xy2 = pad_rows(np.asarray(cam.unproject_points(xb)), len(pvalid))
+    th2 = (1.0 / cam.fx) ** 2 * 3.84
+    samples = epipolar.generator_sampler(cpu, 42)(torch.as_tensor(pvalid), 512, 8)
+    res = {}
+    for d in (dev, cpu):
+        x1, x2 = torch.as_tensor(xy1).to(d), torch.as_tensor(xy2).to(d)
+        E, m, nin = epipolar.find_essential(x1, x2, torch.as_tensor(pvalid).to(d), th2, 512,
+                                            samples=samples.to(d))
+        T, front = epipolar.recover_pose(E, x1, x2, m)
+        res[d.type] = (E.cpu().numpy(), m.cpu().numpy(), int(nin), T.cpu().numpy(),
+                       front.cpu().numpy())
+    (Eg, mg, ng, Tg, _), (Ec, mc, nc, Tc, _) = res["cuda"], res["cpu"]
+    rot = float(np.arccos(np.clip((np.trace(Tg[:3, :3].T @ Tc[:3, :3]) - 1) / 2, -1, 1)))
+    tdir = float(np.linalg.norm(Tg[:3, 3] / np.linalg.norm(Tg[:3, 3])
+                                - Tc[:3, 3] / np.linalg.norm(Tc[:3, 3])))
+    # recover_pose of the same E on both
+    x1g, x2g = torch.as_tensor(xy1).to(dev), torch.as_tensor(xy2).to(dev)
+    Tsame, fsame = epipolar.recover_pose(torch.as_tensor(Ec).to(dev), x1g, x2g,
+                                         torch.as_tensor(mc).to(dev))
+    Tsame = Tsame.cpu().numpy()
+    rot_same = float(np.arccos(np.clip((np.trace(Tsame[:3, :3].T @ Tc[:3, :3]) - 1) / 2,
+                                       -1, 1)))
+    log(f"[card-cpu] find_essential + recover_pose on {len(i1)} matches of frames 0-1, the "
+        f"same 512 minimal samples: inliers {ng} on the card, {nc} on the CPU; rotation "
+        f"{rot:.3e} rad and unit translation {tdir:.3e} apart; recover_pose of the CPU's E "
+        f"on the card: rotation {rot_same:.3e} rad apart, in-front mask "
+        f"{'identical' if np.array_equal(fsame.cpu().numpy(), res['cpu'][4]) else 'differs'}")
+    # per hypothesis: the solvers take AᵀA's null vector in float32, which
+    # is float32 noise where λ2 / λmax <= 1e-5 (float64); count how many of
+    # the 512 hypotheses are above that line and how their inlier counts
+    # compare (reported: on this forward-moving pair nearly none are)
+    counts = {}
+    for d in (dev, cpu):
+        x1, x2 = torch.as_tensor(xy1).to(d), torch.as_tensor(xy2).to(d)
+        Es = epipolar._eight_point(x1[samples.to(d)], x2[samples.to(d)])
+        counts[d.type] = torch.sum((epipolar._sampson_error(Es, x1, x2) < th2)
+                                   & torch.as_tensor(pvalid).to(d)[None], 1).cpu().numpy()
+    A = epipolar._epipolar_rows(torch.as_tensor(xy1).double()[samples],
+                                torch.as_tensor(xy2).double()[samples])
+    lam = torch.linalg.eigvalsh(A.transpose(-1, -2) @ A).numpy()
+    good = lam[:, 1] / lam[:, -1] > 1e-5
+    hyp_diff = int(np.abs(counts["cuda"] - counts["cpu"])[good].max()) if good.any() else None
+    n_same = int((counts["cuda"] == counts["cpu"]).sum())
+    log(f"[card-cpu] hypotheses: {int(good.sum())} of 512 well-conditioned (their inlier "
+        f"counts at most {hyp_diff} apart); {n_same} of 512 with identical inlier counts")
+    assert abs(ng - nc) <= 0.1 * len(i1) and rot <= 2e-2 and tdir <= 0.3, (ng, nc, rot, tdir)
+    assert rot_same <= 1e-3, rot_same
+
+    # LK of the RGBD VO's corners, 2000 at most, frame 0 -> 1
+    score = fast.fast_nms(torch.as_tensor(img0)[None].to(dev), VO_FAST_TH)
+    xy, _, v = nms.grid_topk_keypoints(score, 16, 6, N_FEATURES)
+    pts = xy[0][v[0]].cpu().numpy()
+    ptsp, _ = pad_bucket(pts.astype(np.float32))
+    out = {}
+    for d in (dev, cpu):
+        p, ok, _ = lk.lk_track_pyramidal(torch.as_tensor(img0).to(d), torch.as_tensor(img1).to(d),
+                                         torch.as_tensor(ptsp).to(d))
+        out[d.type] = (p.cpu().numpy(), ok.cpu().numpy())
+    both = out["cuda"][1] & out["cpu"][1]
+    lk_err = float(np.abs(out["cuda"][0][both] - out["cpu"][0][both]).max())
+    n_ok_diff = int((out["cuda"][1] != out["cpu"][1]).sum())
+    log(f"[card-cpu] LK of {len(pts)} corners (padded to {len(ptsp)}): {int(both.sum())} ok on "
+        f"both, max |card - CPU| {lk_err:.3e} px, ok masks differ on {n_ok_diff}")
+    assert lk_err <= 1e-2, lk_err
+
+    # device cost of one LK call and one essential matrix + pose
+    i0t, i1t = torch.as_tensor(img0).to(dev), torch.as_tensor(img1).to(dev)
+    pt = torch.as_tensor(ptsp).to(dev)
+    vt = torch.as_tensor(pvalid).to(dev)
+    st = samples.to(dev)
+
+    def essential():
+        E, m, _ = epipolar.find_essential(x1g, x2g, vt, th2, 512, samples=st)
+        return epipolar.recover_pose(E, x1g, x2g, m)
+
+    cost = {"lk_track_pyramidal": profile_call(lambda: lk.lk_track_pyramidal(i0t, i1t, pt)),
+            "find_essential_recover_pose": profile_call(essential)}
+    cost_ms = {"lk_track_pyramidal": events_ms(lambda: lk.lk_track_pyramidal(i0t, i1t, pt), 5),
+               "find_essential_recover_pose": events_ms(essential, 5)}
+    log(f"[cost] kernel launches and summed kernel time (ms, torch.profiler), and the time "
+        f"of one call (ms, CUDA events over 5 calls): LK at {len(ptsp)} points "
+        f"{cost['lk_track_pyramidal']}, {cost_ms['lk_track_pyramidal']:.3f} ms; "
+        f"find_essential + recover_pose at {len(pvalid)} rows "
+        f"{cost['find_essential_recover_pose']}, "
+        f"{cost_ms['find_essential_recover_pose']:.3f} ms")
+    return dict(lk_err=lk_err, rot=rot, tdir=tdir, rot_same_E=rot_same,
+                hyp_well_conditioned=int(good.sum()), hyp_diff=hyp_diff,
+                hyp_identical=n_same, inliers=(ng, nc), cost=cost, cost_ms=cost_ms)
+
+
+def mono_init_cost(dev, frames, cam, tracker, ref_id, init_id, samples):
+    """Launches and kernel ms of the monocular initialisation of phase 10,
+    replayed: frame ref_id as the reference, frame init_id's attempt
+    profiled with the minimal samples that attempt drew in the stage."""
+    from pyslam_tpu_torch.io.dataset_types import SensorType
+    from pyslam_tpu_torch.slam.frame import Frame
+    from pyslam_tpu_torch.slam.initializer import Initializer
+    from pyslam_tpu_torch.slam.map import Map
+
+    fr = Frame(cam, frames[ref_id][0], feature_tracker=tracker, frame_id=ref_id)
+    fi = Frame(cam, frames[init_id][0], feature_tracker=tracker, frame_id=init_id)
+    init = Initializer(SensorType.MONOCULAR, N_FEATURES, device=dev,
+                       sampler=lambda *args: samples)
+    m = Map(device=dev)
+    init.initialize(fr, m)
+    result = []
+    cost = profile_call(lambda: result.append(init.initialize(fi, m).success))
+    log(f"[cost] the monocular initialisation of phase 10 replayed (reference frame "
+        f"{ref_id}, frame {init_id}, its minimal samples): {cost[0]} kernel launches, "
+        f"{cost[1]:.4f} ms of kernel time; success {result[0]}")
+    return cost
+
+
+def one_image_kernels(dev, frames):
+    """The kernel as the monocular and RGBD paths call it, against its
+    plain version, bit for bit, and timed: the B = 1 pyramid (8 levels of
+    one 376x1241 image at threshold 20) and the RGBD VO's one level at
+    threshold 15."""
+    import torch
+
+    from pyslam_tpu_torch.ops import image as image_ops
+    from pyslam_tpu_torch.ops.fast import fast_nms, fast_nms_plain, fast_nms_pyramid
+
+    img = torch.as_tensor(frames[0][0])[None].to(dev)
+    levels = [x.contiguous() for x in image_ops.build_pyramid(img, N_LEVELS, 1.2)]
+    out = {}
+    for name, fn, plain, lv, th in (
+            ("b1_pyramid", lambda: fast_nms_pyramid(levels, FAST_TH),
+             lambda: [fast_nms_plain(x, FAST_TH) for x in levels], levels, FAST_TH),
+            ("vo_level_th15", lambda: [fast_nms(img, VO_FAST_TH)],
+             lambda: [fast_nms_plain(img, VO_FAST_TH)], [img], VO_FAST_TH)):
+        got, ref = fn(), plain()
+        torch.cuda.synchronize()
+        for a, b in zip(got, ref):
+            assert torch.equal(a, b), f"fast_nms differs from the plain version ({name})"
+        work = fast_work(lv, th, BORDER)
+        out[name] = dict(ms=statistics.median([graph_ms(fn), graph_ms(fn)]),
+                         plain_ms=median_ms(plain, n=10), bound_ms=work["bound_ms"],
+                         bound_by=work["bound_by"], max_abs_err=max(
+                             float((a - b).abs().max()) for a, b in zip(got, ref)))
+        log(f"[kernel] fast_nms {name}: equal to the plain version; {out[name]['ms']:.4f} ms "
+            f"(CUDA-graph replays), plain {out[name]['plain_ms']:.4f} ms, bound "
+            f"{work['bound_ms']:.5f} ms ({work['bound_by']}), "
+            f"{work['bound_ms'] / out[name]['ms'] * 100:.1f}% of it")
+    return out
+
+
 def main():
     import torch
 
@@ -866,15 +1225,75 @@ def main():
 
     # ---------------------------------------------------------------- 8
     t0 = time.perf_counter()
-    starts = range(0, LOOP_FRAMES, RENDER_CHUNK)
-    with ProcessPoolExecutor(max_workers=min(8, os.cpu_count() or 1),
-                             mp_context=multiprocessing.get_context("spawn")) as pool:
-        loop_frames = [f for chunk in pool.map(
-            render_loop_frames, starts, [min(a + RENDER_CHUNK, LOOP_FRAMES) for a in starts])
-            for f in chunk]
+    loop_frames = render(render_loop_frames, LOOP_FRAMES)
     log(f"[loop] rendered {LOOP_FRAMES} stereo frames {H}x{W} in "
         f"{time.perf_counter() - t0:.1f} s (worker processes)")
     loop_launches = loop_phase(dev, (ds.w, ds.h, ds.fx, ds.fy, ds.cx, ds.cy), loop_frames)
+    del loop_frames
+    torch.cuda.empty_cache()
+
+    # ---------------------------------------------------------------- 9
+    from pyslam_tpu_torch.config_parameters import Parameters
+    from pyslam_tpu_torch.dense.volumetric_integrator import (
+        VolumetricIntegratorType, volumetric_integrator_factory)
+
+    t0 = time.perf_counter()
+    rgbd_frames = render(render_rgbd_frames, N_FRAMES)
+    log(f"[rgbd] rendered {N_FRAMES} frames {H}x{W} with depth in "
+        f"{time.perf_counter() - t0:.1f} s (worker processes)")
+    ds_rgbd = bench_stream("RGBD")
+    cam_rgbd = PinholeCamera(ds.w, ds.h, ds.fx, ds.fy, ds.cx, ds.cy, fps=ds.fps,
+                             bf=ds.fx * BASELINE_M, depth_threshold=35.0)
+    # the TSDF integrator on the sensor's depth: no estimator, the main
+    # stage's voxel, truncation and table
+    Parameters.kVolumetricIntegrationUseDepthEstimator = False
+    Parameters.kVolumetricIntegrationDepthTruncOutdoor = DEPTH_TRUNC_OUTDOOR
+    integ = volumetric_integrator_factory(
+        VolumetricIntegratorType.TSDF, camera=cam_rgbd,
+        environment_type=type("E", (), {"name": "OUTDOOR"})(),
+        voxel_size=VOXEL_SIZE, sdf_trunc=SDF_TRUNC, device=dev)
+    assert integ._depth_provider is None and integ.volume.capacity == TABLE_CAPACITY
+    rgbd, slam, _ = sensor_stage(dev, "RGBD", rgbd_frames, cam_rgbd, ds_rgbd, integ)
+    assert rgbd["launches"] == N_FRAMES, f"{rgbd['launches']} fast_nms launches"
+    assert rgbd["n_tracked"] == N_FRAMES, f"{rgbd['n_tracked']}/{N_FRAMES} tracked"
+    assert rgbd["ate"] < ATE_MAX, rgbd["ate"]
+    assert rgbd["snapshots"] >= 1 and rgbd["integrated"] == rgbd["snapshots"], rgbd
+    assert rgbd["voxels"] > 0 and integ.volume.table.tsdf.device.type == "cuda"
+    del slam, integ
+    torch.cuda.empty_cache()
+
+    # ---------------------------------------------------------------- 10
+    ds_mono = bench_stream("MONOCULAR")
+    cam_mono = PinholeCamera(ds.w, ds.h, ds.fx, ds.fy, ds.cx, ds.cy, fps=ds.fps,
+                             depth_threshold=35.0)
+    mono_frames = [(img, None, ts) for img, _, ts in rgbd_frames]
+    mono, slam, init_samples = sensor_stage(dev, "MONOCULAR", mono_frames, cam_mono, ds_mono)
+    init_frame = mono["init_frame"]
+    assert init_frame is not None and init_frame <= MONO_REF_INIT_FRAME + MONO_INIT_MARGIN, \
+        f"initialised at frame {init_frame}, the reference at {MONO_REF_INIT_FRAME}"
+    assert mono["n_tracked"] == N_FRAMES - init_frame, \
+        f"{mono['n_tracked']} tracked from frame {init_frame} on"
+    assert mono["launches"] == N_FRAMES, f"{mono['launches']} fast_nms launches"
+    assert mono["ate"] < ATE_MAX, mono["ate"]
+    del slam
+    torch.cuda.empty_cache()
+
+    # ---------------------------------------------------------------- 11
+    vo, tracker = vo_phase(dev, rgbd_frames, cam_mono, ds_rgbd)
+    assert vo["mono"]["launches"] == N_FRAMES and vo["rgbd"]["launches"] == N_FRAMES, \
+        {k: v["launches"] for k, v in vo.items()}
+    assert vo["mono"]["ate"] < VO_MONO_ATE_MAX and vo["rgbd"]["ate"] < VO_RGBD_ATE_MAX, \
+        {k: v["ate"] for k, v in vo.items()}
+    card = card_vs_cpu(dev, rgbd_frames, cam_rgbd, tracker)
+    init_cost = mono_init_cost(dev, mono_frames, cam_mono, tracker, mono["ref_frame"],
+                               init_frame, init_samples)
+    one = one_image_kernels(dev, rgbd_frames)
+    log("[sensors] " + json.dumps({
+        "rgbd": {k: v for k, v in rgbd.items()},
+        "mono": {k: v for k, v in mono.items()},
+        "vo": {k: {kk: vv for kk, vv in v.items() if kk != "vo"} for k, v in vo.items()},
+        "card_vs_cpu": card, "mono_init_cost": init_cost, "kernel_calls": one},
+        default=float))
 
     print(json.dumps({"kernels": [{
         "name": "fast_nms", "route": "cuda",
@@ -882,6 +1301,9 @@ def main():
         "replaces": "pyslam_tpu/ops/pallas_fast.py:95",
         "launches": launches, "launches_per_frame": launches / N_FRAMES,
         "launches_loop_stage": loop_launches,
+        "launches_rgbd_stage": rgbd["launches"], "launches_mono_stage": mono["launches"],
+        "launches_vo_mono": vo["mono"]["launches"], "launches_vo_rgbd": vo["rgbd"]["launches"],
+        "mono_frame": one["b1_pyramid"], "vo_rgbd_level_th15": one["vo_level_th15"],
         "max_abs_err": max_err, "ms": kern_ms, "plain_ms": plain_ms,
         "bound_ms": work["bound_ms"], "bound_by": work["bound_by"], "library_ms": None,
         "before_ms": before_ms}]}))

@@ -50,7 +50,11 @@ class Parameters:
     kUseFusedTrackingStep = True            # one-dispatch OK-path tracking (ops/fused_tracking.py)
 
     # ---------------------------------------------------------- initializer
+    kInitializerNumMinFeatures = 100        # ref :109
     kInitializerNumMinFeaturesStereo = 500  # ref :110
+    kInitializerNumMinTriangulatedPoints = 150   # ref :111
+    kInitializerNumMinTriangulatedPointsStereo = 100  # ref :112
+    kInitializerFeatureMatchRatioTest = 0.9  # ref :113
 
     # ---------------------------------------------------------- keyframes
     kNumMinPointsForNewKf = 15              # min tracked points to allow a new KF
@@ -68,6 +72,7 @@ class Parameters:
     kKeyframeCullingMinNumPoints = 3
     kMapPointCullingMinFoundRatio = 0.25    # found/visible acceptance for new points
     kLocalMappingNumNeighborKeyFramesStereo = 10    # triangulation neighbors (ref :191)
+    kLocalMappingNumNeighborKeyFramesMonocular = 20  # ref :194
     kMinNumOfCovisiblePointsForCreatingConnection = 15  # ref :200
 
     # ------------------------------------------------------------ optimizer
@@ -117,6 +122,7 @@ class Parameters:
     kScaleConsistencyFactor = 1.5
     kMaxOrbDistanceSearchByReproj = 50      # descriptor gate on projection search
     kCosMaxParallax = 0.9998                # triangulation parallax acceptance
+    kMinRatioBaselineDepth = 0.01           # mono triangulation: baseline / median depth
 
     # -------------------------------------------------------------- dense
     kVolumetricIntegrationVoxelSize = 0.05

@@ -1,9 +1,10 @@
 """Feature tracker: extractor bundle and its configuration (port of
 ``pyslam_tpu/features/tracker.py:43``, ``:380``, ``:685``).
 
-Only the ORB2 preset is ported: the ORB2 extractor, whose Hamming matching
-the SLAM modules call directly.  The other presets (learned and classical extractors, LK, dense
-matchers) come with later slices and are rejected here.
+Only the ORB2 preset is ported: the ORB2 extractor and its brute-force
+Hamming matcher (ratio test, one-to-one cross-check; ``match``).  The other
+presets (learned and classical extractors, LK, dense matchers) and the rest
+of ``features/matcher.py`` come with later slices and are rejected here.
 """
 
 from __future__ import annotations
@@ -11,14 +12,17 @@ from __future__ import annotations
 import enum
 from dataclasses import dataclass, field
 
+import numpy as np
 import torch
 
-from pyslam_tpu_torch.features.orb2 import ORB2Extractor
+from pyslam_tpu_torch.features.orb2 import FeatureData, ORB2Extractor
 from pyslam_tpu_torch.features.types import (
+    FEATURE_INFO,
     FeatureDescriptorTypes,
     FeatureDetectorTypes,
     NormType,
 )
+from pyslam_tpu_torch.ops import hamming, matching
 
 
 class FeatureTrackerTypes(enum.Enum):
@@ -78,9 +82,28 @@ class FeatureTracker:
                                        scale_factor=config.scale_factor,
                                        device=self.device)
         self.norm = NormType.HAMMING
+        # the brute-force matcher's gates (reference FeatureMatcher with the
+        # descriptor's acceptance distance and the preset's ratio)
+        self.max_distance = FEATURE_INFO[config.descriptor_type].max_distance
+        self.ratio_test = config.ratio_test
         self.scale_factors = self.extractor.scale_factors
         self.sigma2 = self.extractor.sigma2
         self.inv_sigma2 = 1.0 / self.sigma2
+
+    def detectAndCompute(self, img) -> FeatureData:
+        """One (H, W) image -> FeatureData on ``device``."""
+        return self.extractor(img)
+
+    def match(self, f1: FeatureData, f2: FeatureData, ratio: float | None = None):
+        """Brute-force Hamming match of two FeatureData with the ratio test
+        and the one-to-one cross-check; returns (idx1, idx2) host arrays."""
+        idx2, _ = matching.match_ratio_test(
+            hamming.hamming_distance_matrix(f1.desc, f2.desc), self.max_distance,
+            ratio=ratio if ratio is not None else self.ratio_test, valid_a=f1.valid,
+            valid_b=f2.valid, cross_check=True)
+        idx2 = idx2.cpu().numpy()
+        idx1 = np.nonzero(idx2 >= 0)[0]
+        return idx1, idx2[idx1]
 
 
 def feature_tracker_factory(config: FeatureTrackerConfig | str = "ORB2", *,

@@ -1,5 +1,5 @@
-"""Image ops: separable Gaussian blur and the image pyramid (port of
-``pyslam_tpu/ops/image.py:18-57``).
+"""Image ops: separable Gaussian blur, the image pyramid, Sobel gradients
+and bilinear sampling (port of ``pyslam_tpu/ops/image.py:18-92``).
 
 Images are float32 (..., H, W) tensors in [0, 255].
 
@@ -219,3 +219,37 @@ def build_pyramid(img: torch.Tensor, num_levels: int, scale: float) -> list[torc
     for lv in range(1, num_levels):
         out.append(resize_bilinear(img, level_shape(h, w, scale, lv)))
     return out
+
+
+def sobel_gradients(img: torch.Tensor):
+    """(gx, gy) of a (H, W) image: the two 3x3 Sobel correlations with
+    replicate padding, written as shifted adds (no cuDNN: exact on
+    integer-valued images, the same order on the CPU and the card)."""
+    p = torch.nn.functional.pad(img[None, None], (1, 1, 1, 1), mode="replicate")[0, 0]
+    h, w = img.shape
+
+    def at(dy, dx):
+        return p[1 + dy:1 + dy + h, 1 + dx:1 + dx + w]
+
+    gx = (at(-1, 1) - at(-1, -1)) + 2.0 * (at(0, 1) - at(0, -1)) + (at(1, 1) - at(1, -1))
+    gy = (at(1, -1) - at(-1, -1)) + 2.0 * (at(1, 0) - at(-1, 0)) + (at(1, 1) - at(-1, 1))
+    return gx, gy
+
+
+def bilinear_sample(img: torch.Tensor, xy: torch.Tensor) -> torch.Tensor:
+    """Values of a (H, W) image at float (..., 2) (x, y) positions, clamped
+    to [0, W - 1.001] x [0, H - 1.001], from four flat gathers."""
+    h, w = img.shape
+    x = torch.clamp(xy[..., 0], 0.0, w - 1.001)
+    y = torch.clamp(xy[..., 1], 0.0, h - 1.001)
+    x0 = torch.floor(x).to(torch.int64)
+    y0 = torch.floor(y).to(torch.int64)
+    x1 = torch.clamp(x0 + 1, max=w - 1)
+    y1 = torch.clamp(y0 + 1, max=h - 1)
+    fx = x - x0
+    fy = y - y0
+    flat = img.reshape(-1)
+    v00, v01 = flat[y0 * w + x0], flat[y0 * w + x1]
+    v10, v11 = flat[y1 * w + x0], flat[y1 * w + x1]
+    return (v00 * (1 - fx) * (1 - fy) + v01 * fx * (1 - fy) + v10 * (1 - fx) * fy
+            + v11 * fx * fy)

@@ -2,8 +2,10 @@
 
 ``PinholeCamera`` carries intrinsics, distortion, stereo baseline (bf) and the
 depth thresholds the tracking front-end uses.  Host numpy code, ported from
-``pyslam_tpu/slam/camera.py``; undistortion is not ported yet (the slice's
-streams are rectified), so a camera with distortion coefficients raises.
+``pyslam_tpu/slam/camera.py``.  A camera with distortion coefficients
+undistorts pixels with ``ops.geometry.undistort_pixels`` (float32, on the
+CPU or on the device of the tensor it is given) and bounds the undistorted
+image by its undistorted corners, which the projection searches read.
 """
 
 from __future__ import annotations
@@ -11,6 +13,9 @@ from __future__ import annotations
 import enum
 
 import numpy as np
+import torch
+
+from pyslam_tpu_torch.ops import geometry
 
 
 class CameraType(enum.Enum):
@@ -59,10 +64,34 @@ class PinholeCamera(Camera):
             depth_threshold if depth_threshold is not None else (40.0 * self.b if bf else np.inf)
         )
         self.is_distorted = bool(np.any(self.D != 0.0))
-        if self.is_distorted:
-            raise NotImplementedError("lens undistortion is not ported yet")
         self.u_min, self.u_max = 0.0, float(width)
         self.v_min, self.v_max = 0.0, float(height)
+        if self.is_distorted:
+            self._init_undistorted_bounds()
+
+    def _init_undistorted_bounds(self):
+        corners = np.array([[0, 0], [self.width, 0], [0, self.height],
+                            [self.width, self.height]], np.float64)
+        und = self.undistort_points(corners)
+        self.u_min = float(min(und[0, 0], und[2, 0]))
+        self.u_max = float(max(und[1, 0], und[3, 0]))
+        self.v_min = float(min(und[0, 1], und[1, 1]))
+        self.v_max = float(max(und[2, 1], und[3, 1]))
+
+    def undistort_points(self, uv):
+        """Distorted pixels -> undistorted pixels (float32).  A tensor is
+        undistorted on its own device and returned as a tensor; anything
+        else on the CPU, returned as numpy."""
+        if isinstance(uv, torch.Tensor):
+            if not self.is_distorted:
+                return uv.to(torch.float32)
+            dev = uv.device
+            return geometry.undistort_pixels(
+                uv.to(torch.float32), torch.as_tensor(self.K, dtype=torch.float32).to(dev),
+                torch.as_tensor(self.D, dtype=torch.float32).to(dev))
+        if not self.is_distorted:
+            return np.asarray(uv, np.float32)
+        return self.undistort_points(torch.as_tensor(np.asarray(uv, np.float32))).numpy()
 
     def unproject_points(self, uv):
         """Pixels -> normalized coords on z=1 plane (undistorted input)."""

@@ -1,5 +1,12 @@
-"""Frame and KeyFrame: per-image containers (port of the fused stereo branch
-of ``pyslam_tpu/slam/frame.py:77-103`` and of ``KeyFrame``).
+"""Frame and KeyFrame: per-image containers (port of
+``pyslam_tpu/slam/frame.py:77-160``, ``:306-321`` and of ``KeyFrame``).
+
+A frame is built from a stereo pair (the fused extraction and row match of
+a rectified camera, or both images extracted apart and matched when the
+camera is distorted), from an image and its depth map (RGBD: virtual right
+coordinates from the sensor depth, ``compute_stereo_from_rgbd``) or from one
+image (monocular).  Keypoints are undistorted once at construction; the
+raw (distorted) ones are kept as ``kps_raw``.
 
 A frame's extraction stays on the device: ``dev(name)`` returns the device
 tensors (``kps``, ``levels``, ``des``, ``valid``, ``kps_ur``) that the
@@ -16,13 +23,39 @@ import numpy as np
 import torch
 
 from pyslam_tpu_torch.config_parameters import Parameters
+from pyslam_tpu_torch.features.orb2 import stereo_match
 from pyslam_tpu_torch.slam.camera import PinholeCamera
+
+
+def compute_stereo_from_rgbd(kps: torch.Tensor, kps_raw: torch.Tensor, valid: torch.Tensor,
+                             depth: torch.Tensor, bf: float, min_depth: float):
+    """RGBD -> per-keypoint depth and virtual right coordinate (reference
+    ``frame.py:306-321``): the depth map (H, W) is read at the rounded raw
+    keypoint (clamped to the image), a depth <= ``min_depth`` or an invalid
+    keypoint gives -1, and ``ur = u - bf / z`` on the undistorted u where
+    ``bf`` > 0 (else -1).  The depth is metric (the dataset readers divide
+    by the camera's depth factor; the reference's own division never fires,
+    its depth being float32 by then).  Discrete and exactly rounded: the
+    same bits on the CPU and the card (round half to even as numpy, a true
+    float32 division by a tensor, not a reciprocal).  Returns (ur, depth)
+    (N,) float32 on the keypoints' device."""
+    h, w = depth.shape[-2:]
+    xs = torch.clamp(torch.round(kps_raw[:, 0]).to(torch.int64), 0, w - 1)
+    ys = torch.clamp(torch.round(kps_raw[:, 1]).to(torch.int64), 0, h - 1)
+    z = depth.reshape(-1)[ys * w + xs].to(torch.float32)
+    ok = (z > min_depth) & valid
+    minus1 = torch.full_like(z, -1.0)
+    ur = minus1
+    if bf > 0:
+        bf_t = torch.tensor(bf, dtype=torch.float32, device=z.device)
+        ur = torch.where(ok, kps[:, 0] - bf_t / torch.clamp(z, min=1e-6), minus1)
+    return ur, torch.where(ok, z, minus1)
 
 
 class Frame:
     _id_counter = 0
 
-    def __init__(self, camera: PinholeCamera, img=None, img_right=None,
+    def __init__(self, camera: PinholeCamera, img=None, img_right=None, depth=None,
                  timestamp: float = 0.0, feature_tracker=None,
                  frame_id: int | None = None):
         if frame_id is None:
@@ -42,30 +75,45 @@ class Frame:
         if img is None or feature_tracker is None:
             return
         extractor = feature_tracker.extractor
-        if img_right is not None:
-            max_disp = (camera.bf / max(Parameters.kMinDepth, 1e-3)
-                        if camera.bf > 0 else 100.0)
-            fd, ur, depth = extractor.extract_stereo(
-                img, img_right, bf=camera.bf, max_disp=max_disp,
-                max_distance=Parameters.kStereoMatchingMaxDescriptorDistance,
-                row_tol=Parameters.kStereoMatchingRowTolerance)
+        max_disp = camera.bf / max(Parameters.kMinDepth, 1e-3) if camera.bf > 0 else 100.0
+        stereo_args = dict(bf=camera.bf, max_disp=max_disp,
+                           max_distance=Parameters.kStereoMatchingMaxDescriptorDistance,
+                           row_tol=Parameters.kStereoMatchingRowTolerance)
+        if img_right is not None and not camera.is_distorted:
+            # fused: both images in one batch, then the row match
+            fd, ur, z = extractor.extract_stereo(img, img_right, **stereo_args)
+            kps = fd.xy
         else:
-            fd = extractor(img)
-            ur = depth = torch.full_like(fd.xy[:, 0], -1.0)
-        self._dev = {"kps": fd.xy, "levels": fd.level, "des": fd.desc,
+            fd = feature_tracker.detectAndCompute(img)
+            kps = camera.undistort_points(fd.xy)
+            if img_right is not None:
+                fr = feature_tracker.detectAndCompute(img_right)
+                ur, z = stereo_match(fd._replace(xy=kps), fr, **stereo_args)
+            elif depth is not None:
+                ur, z = compute_stereo_from_rgbd(
+                    kps, fd.xy, fd.valid, torch.as_tensor(np.asarray(depth)).to(self.device),
+                    camera.bf, Parameters.kMinDepth)
+            else:
+                ur = z = torch.full_like(fd.xy[:, 0], -1.0)
+        self._dev = {"kps": kps, "levels": fd.level, "des": fd.desc,
                      "valid": fd.valid, "kps_ur": ur}
         # one device->host transfer for all small per-keypoint fields
-        meta = torch.stack([fd.xy[:, 0], fd.xy[:, 1], fd.level.to(torch.float32),
-                            fd.angle, fd.size, fd.valid.to(torch.float32), ur, depth],
-                           1).cpu().numpy()
+        meta = torch.stack([kps[:, 0], kps[:, 1], fd.xy[:, 0], fd.xy[:, 1],
+                            fd.level.to(torch.float32), fd.angle, fd.size,
+                            fd.valid.to(torch.float32), ur, z], 1).cpu().numpy()
         self.set_host_fields(
-            kps=np.ascontiguousarray(meta[:, 0:2]), levels=meta[:, 2].astype(np.int32),
-            angles=meta[:, 3].copy(), sizes=meta[:, 4].copy(), valid=meta[:, 5] > 0.5,
-            kps_ur=meta[:, 6].copy(), depths=meta[:, 7].copy())
+            kps=np.ascontiguousarray(meta[:, 0:2]), levels=meta[:, 4].astype(np.int32),
+            angles=meta[:, 5].copy(), sizes=meta[:, 6].copy(), valid=meta[:, 7] > 0.5,
+            kps_ur=meta[:, 8].copy(), depths=meta[:, 9].copy(),
+            kps_raw=np.ascontiguousarray(meta[:, 2:4]))
 
-    def set_host_fields(self, kps, levels, angles, sizes, valid, kps_ur, depths):
-        """Host copies of the per-keypoint fields; resets the assignment."""
+    def set_host_fields(self, kps, levels, angles, sizes, valid, kps_ur, depths,
+                        kps_raw=None):
+        """Host copies of the per-keypoint fields (``kps`` undistorted,
+        ``kps_raw`` as detected: the same for an undistorted camera); resets
+        the assignment."""
         self.kps = kps
+        self.kps_raw = kps if kps_raw is None else kps_raw
         self.levels = levels
         self.angles = angles
         self.sizes = sizes

@@ -108,7 +108,11 @@ class LocalMapping:
     def accepts_keyframes(self) -> bool:
         """Whether a new keyframe can be digested promptly: an in-flight LBA
         does not count as busy (a new keyframe aborts it), nor does a job
-        whose triangulation has landed (stage >= 3)."""
+        whose triangulation has landed (stage >= 3).  Monocular: only when
+        idle, so that every keyframe's LBA lands un-aborted (the scale
+        drifts otherwise)."""
+        if self.sensor_type == SensorType.MONOCULAR:
+            return len(self.queue) == 0 and self._job is None
         return len(self.queue) == 0 and (self._job is None or self._job_stage >= 3)
 
     def queue_size(self) -> int:
@@ -279,14 +283,26 @@ class LocalMapping:
     def _tri_dispatch(self, kf: KeyFrame):
         """Epipolar matching of kf against its covisible neighbours, all in
         one batched device call (dispatch half; DLT at harvest)."""
-        n_neighbors = Parameters.kLocalMappingNumNeighborKeyFramesStereo
+        mono = self.sensor_type == SensorType.MONOCULAR
+        n_neighbors = (Parameters.kLocalMappingNumNeighborKeyFramesMonocular if mono
+                       else Parameters.kLocalMappingNumNeighborKeyFramesStereo)
         cam = self.camera
         neighbors = []   # (kf2, F_21, epipole2)
         for kid2 in kf.ordered_covisibles(n_neighbors):
             kf2 = self.map.keyframes.get(kid2)
             if kf2 is None or kf2.is_bad:
                 continue
-            if np.linalg.norm(kf2.Ow - kf.Ow) < cam.b:
+            baseline = np.linalg.norm(kf2.Ow - kf.Ow)
+            if mono:
+                # baseline against kf2's median scene depth
+                pids2 = kf2.points[kf2.points >= 0]
+                med_depth = 1.0
+                if len(pids2) > 0:
+                    pc = (kf2.Tcw[:3, :3] @ self.map.points.pos[pids2].T).T + kf2.Tcw[:3, 3]
+                    med_depth = np.median(pc[:, 2])
+                if baseline / max(med_depth, 1e-6) < Parameters.kMinRatioBaselineDepth:
+                    continue
+            elif baseline < cam.b:
                 continue   # baseline too small
             T21 = kf2.Tcw @ np.linalg.inv(kf.Tcw)
             F = geometry.fundamental_np(T21, cam.K, cam.K).astype(np.float32)

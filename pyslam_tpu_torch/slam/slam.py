@@ -1,19 +1,23 @@
 """Slam facade: the main user-facing class (port of
 ``pyslam_tpu/slam/slam.py:37-229``, ``:336-347``).
 
-``Slam(camera, feature_tracker_config, sensor_type=STEREO, device=...)``
-with ``track()``, ``finish()``, ``get_final_trajectory()``, ``timings()``
-and ``set_volumetric_integrator()``.  The host drives everything in one
+``Slam(camera, feature_tracker_config, sensor_type=STEREO | RGBD |
+MONOCULAR, device=...)`` with ``track()``, ``finish()``,
+``get_final_trajectory()``, ``timings()`` and
+``set_volumetric_integrator()``.  The host drives everything in one
 thread: ``track()`` harvests finished back-end work, tracks the frame,
-snapshots a new keyframe's images for the volumetric integrator, advances
-local mapping by a bounded slice, services loop closing (one keyframe's
-detection, or a poll of the asynchronous GBA) and issues one integrator
-stage; the device queue gives the overlap.  Only the stereo sensor is
-ported.
+snapshots a new keyframe's images (and an RGBD keyframe's sensor depth, so
+the integrator takes it instead of estimating one) for the volumetric
+integrator, advances local mapping by a bounded slice, services loop
+closing (one keyframe's detection, or a poll of the asynchronous GBA) and
+issues one integrator stage; the device queue gives the overlap.  The
+reference's ``depth_estimator=`` upgrade of a monocular stream to RGBD
+needs the learned estimators, which are not ported.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from pyslam_tpu_torch.config_parameters import Parameters
@@ -34,9 +38,10 @@ class Slam:
     def __init__(self, camera: PinholeCamera,
                  feature_tracker_config: FeatureTrackerConfig | str = "ORB2",
                  loop_detector_config=None, sensor_type: SensorType = SensorType.STEREO, *,
-                 device: torch.device | str = "cuda"):
-        if sensor_type != SensorType.STEREO:
-            raise NotImplementedError(f"{sensor_type.name} tracking is not ported yet")
+                 depth_estimator=None, device: torch.device | str = "cuda"):
+        if depth_estimator is not None:
+            raise NotImplementedError("the depth-estimator upgrade of a monocular stream "
+                                      "needs the learned estimators, which are not ported yet")
         self.camera = camera
         self.sensor_type = sensor_type
         self.device = torch.device(device)
@@ -53,7 +58,7 @@ class Slam:
                                  self.local_mapping)
         self._prefetched = None   # (frame_id, Frame) built during the last call
         self.volumetric_integrator = None
-        self._last_input = None   # (frame_id, (img, img_right)) of the last call
+        self._last_input = None   # (frame_id, (img, img_right, depth)) of the last call
         self.loop_closing = None
         self.GBA = None
         if loop_detector_config is not None and Parameters.kUseLoopClosing:
@@ -65,12 +70,13 @@ class Slam:
             self.tracking.relocalizer = self.loop_closing.relocalizer
             self.GBA = self.loop_closing.gba   # the asynchronous post-loop GBA
 
-    def track(self, img, img_right=None, frame_id=0, timestamp=0.0,
+    def track(self, img, img_right=None, depth=None, frame_id=0, timestamp=0.0,
               next_input: dict | None = None):
-        """Track one stereo frame.  ``next_input`` ({img, img_right,
-        frame_id, timestamp} of the NEXT frame) lets its extraction be
-        queued right behind this frame's tracking step, so the device works
-        on it while the host finishes this frame."""
+        """Track one frame: a stereo pair, an image with its metric depth
+        map (RGBD), or one image (monocular).  ``next_input`` ({img,
+        img_right, depth, frame_id, timestamp} of the NEXT frame) lets its
+        extraction be queued right behind this frame's tracking step, so the
+        device works on it while the host finishes this frame."""
         self.local_mapping.harvest()
         pre = None
         if self._prefetched is not None:
@@ -84,14 +90,14 @@ class Slam:
             fired.append(True)
             ni = next_input
             self._prefetched = (ni["frame_id"], Frame(
-                self.camera, ni["img"], img_right=ni["img_right"],
+                self.camera, ni["img"], img_right=ni.get("img_right"), depth=ni.get("depth"),
                 timestamp=ni.get("timestamp", 0.0), feature_tracker=self.feature_tracker,
                 frame_id=ni["frame_id"]))
 
-        has_next = next_input is not None and next_input.get("img_right") is not None
+        has_next = next_input is not None and next_input.get("img") is not None
         if has_next:
             self.tracking.on_fused_dispatched = prefetch
-        frame = self.tracking.track(img, img_right=img_right, frame_id=frame_id,
+        frame = self.tracking.track(img, img_right=img_right, depth=depth, frame_id=frame_id,
                                     timestamp=timestamp, frame=pre)
         self.tracking.on_fused_dispatched = None
         if has_next and not fired:
@@ -99,20 +105,25 @@ class Slam:
         if self.tracking.reset_requested:
             Printer.yellow("Slam: resetting session (early tracking loss)")
             self.reset()
-        # a keyframe created this frame: snapshot its images for the
-        # integrator, which takes them when local mapping hands the keyframe
-        # over (a keyframe made from the previous call's input takes that)
+        # a keyframe created this frame: snapshot its images (and sensor
+        # depth) for the integrator, which takes them when local mapping
+        # hands the keyframe over (a keyframe made from the previous call's
+        # input takes that)
         vi = self.volumetric_integrator
         kf = self.tracking.kf_ref
         if vi is not None and kf is not None:
             imgs = None
             if kf.id == frame_id:
-                imgs = (img, img_right)
+                imgs = (img, img_right, depth)
             elif self._last_input is not None and kf.id == self._last_input[0]:
                 imgs = self._last_input[1]
             if imgs is not None:
-                vi.offer_keyframe_data(kf, intensity=imgs[0], img_right=imgs[1])
-        self._last_input = (frame_id, (img, img_right))
+                l_img, l_right, l_depth = imgs
+                vi.offer_keyframe_data(
+                    kf, intensity=l_img, img_right=l_right,
+                    depth=None if l_depth is None
+                    else np.where(np.asarray(l_depth) > 0, l_depth, 0.0))
+        self._last_input = (frame_id, (img, img_right, depth))
         self.local_mapping.step_async()
         if self.loop_closing is not None:
             self.loop_closing.step()

@@ -9,7 +9,11 @@ Per frame on the OK path:
   3. when the fused step is weak or missing, the fallback chain: previous
      frame by projection (narrow, then wide radius), else a full descriptor
      match against the reference keyframe; pose optimisation; local map;
-  4. keyframe decision and creation (stereo: spawn close points).
+  4. keyframe decision and creation (stereo and RGBD: spawn close points).
+
+A monocular frame is accepted at ``kNumMinInliersPoseOptimizationTrackFrame``
+inliers after the local map, where stereo and RGBD need
+``kNumMinInliersTrackLocalMap``.
 
 The state machine is host Python; every numeric stage runs on the device of
 the feature tracker.  Each frame is predicted from the previous frame
@@ -97,7 +101,8 @@ class Tracking:
         self.sensor_type = sensor_type
         self.local_mapping = local_mapping
         self.state = TrackingState.NO_IMAGES_YET
-        self.initializer = Initializer(sensor_type, feature_tracker.num_features)
+        self.initializer = Initializer(sensor_type, feature_tracker.num_features,
+                                       device=self.device)
         self.motion_model = MotionModel()
         self.history = TrackingHistory()
         self.f_prev: Frame | None = None
@@ -395,11 +400,11 @@ class Tracking:
         return kf
 
     # ----------------------------------------------------------------- track
-    def track(self, img, img_right=None, frame_id=0, timestamp=0.0,
+    def track(self, img, img_right=None, depth=None, frame_id=0, timestamp=0.0,
               frame: Frame | None = None) -> Frame:
         with self.timings.stage("frame"):
             f_cur = frame if frame is not None else Frame(
-                self.camera, img, img_right=img_right, timestamp=timestamp,
+                self.camera, img, img_right=img_right, depth=depth, timestamp=timestamp,
                 feature_tracker=self.tracker, frame_id=frame_id)
         if self.state == TrackingState.NO_IMAGES_YET:
             self.state = TrackingState.NOT_INITIALIZED
@@ -422,6 +427,13 @@ class Tracking:
             return self.motion_model.predict(self.f_prev.Tcw)
         return self.f_prev.Tcw
 
+    def _local_map_ok(self, n_inl: int) -> bool:
+        """Enough inliers after the local map: monocular frames need only the
+        frame-tracking minimum."""
+        return n_inl >= Parameters.kNumMinInliersTrackLocalMap or (
+            self.sensor_type == SensorType.MONOCULAR
+            and n_inl >= Parameters.kNumMinInliersPoseOptimizationTrackFrame)
+
     def _track_core(self, f_cur: Frame, frame_id, timestamp) -> Frame:
         """OK/LOST state logic for one frame."""
         fused_ok = False
@@ -435,7 +447,7 @@ class Tracking:
                     out = self.track_fused(self.f_prev, f_cur)
             if out is not None:
                 n_inl2 = out[2]
-                if n_inl2 >= Parameters.kNumMinInliersTrackLocalMap:
+                if self._local_map_ok(n_inl2):
                     self.num_inliers = n_inl2
                     fused_ok = True
                 else:
@@ -480,7 +492,7 @@ class Tracking:
         if not fused_ok:
             with self.timings.stage("track_local_map"):
                 n_inl = self.track_local_map(f_cur)
-            if n_inl >= Parameters.kNumMinInliersTrackLocalMap:
+            if self._local_map_ok(n_inl):
                 self.num_inliers = n_inl
                 self.state = TrackingState.OK
             elif self.num_inliers < Parameters.kNumMinInliersPoseOptimizationTrackFrame:

@@ -17,6 +17,8 @@ def test_import_loads_no_jax():
         "import pyslam_tpu_torch.dense.volumetric_integrator, pyslam_tpu_torch.dense.marching\n"
         "import pyslam_tpu_torch.depth_estimation.depth_estimator\n"
         "import pyslam_tpu_torch.loop_closing.loop_closing, pyslam_tpu_torch.ops.pnp\n"
+        "import pyslam_tpu_torch.ops.lk, pyslam_tpu_torch.ops.epipolar, pyslam_tpu_torch.io.ground_truth\n"
+        "import pyslam_tpu_torch.slam.visual_odometry, pyslam_tpu_torch.slam.visual_odometry_rgbd\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
         "or m == 'pyslam_tpu' or m.startswith('pyslam_tpu.')]\n"
         "assert not bad, bad\n"
@@ -73,7 +75,9 @@ def test_import_builds_nothing():
                                   "loop_closing.vocabulary.BinaryVocabulary",
                                   "slam.global_bundle_adjustment.AsyncGBA",
                                   "slam.global_bundle_adjustment.build_full_problem",
-                                  "slam.global_bundle_adjustment.global_bundle_adjustment"])
+                                  "slam.global_bundle_adjustment.global_bundle_adjustment",
+                                  "slam.initializer.Initializer",
+                                  "slam.visual_odometry_rgbd.VisualOdometryRgbd"])
 def test_entry_points_default_to_the_card(name):
     """The entry points run on the card unless the caller asks for the CPU;
     ``device`` is keyword-only."""
@@ -137,3 +141,34 @@ def test_detector_builds_bow_presets(preset):
 
     det = LoopDetector(LoopDetectorConfigs.get(preset), device="cpu")
     assert det.vocabulary.device.type == "cpu"
+
+
+@pytest.mark.parametrize("sensor", ["RGBD", "MONOCULAR", "STEREO"])
+def test_every_sensor_builds(sensor):
+    """Slam accepts every sensor the JAX package supports, and a camera with
+    distortion coefficients."""
+    from pyslam_tpu_torch.features.tracker import FeatureTrackerConfig
+    from pyslam_tpu_torch.io.dataset_types import SensorType
+    from pyslam_tpu_torch.slam.camera import PinholeCamera
+    from pyslam_tpu_torch.slam.slam import Slam
+
+    cam = PinholeCamera(640, 480, 517.3, 516.5, 318.6, 255.3, bf=40.0,
+                        D=[0.2624, -0.9531, -0.0054, 0.0026, 1.1633])
+    assert cam.is_distorted and cam.u_min != 0.0
+    slam = Slam(cam, FeatureTrackerConfig(num_features=300, num_levels=3),
+                sensor_type=SensorType[sensor], device="cpu")
+    assert slam.sensor_type == SensorType[sensor]
+
+
+def test_depth_estimator_upgrade_refused():
+    """The monocular -> RGBD upgrade by a depth estimator needs the learned
+    estimators, which are not ported."""
+    from pyslam_tpu_torch.features.tracker import FeatureTrackerConfig
+    from pyslam_tpu_torch.io.dataset_types import SensorType
+    from pyslam_tpu_torch.slam.camera import PinholeCamera
+    from pyslam_tpu_torch.slam.slam import Slam
+
+    cam = PinholeCamera(320, 240, 200.0, 200.0, 160.0, 120.0)
+    with pytest.raises(NotImplementedError):
+        Slam(cam, FeatureTrackerConfig(num_features=300, num_levels=3),
+             sensor_type=SensorType.MONOCULAR, depth_estimator=object(), device="cpu")

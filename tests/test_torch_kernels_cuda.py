@@ -118,3 +118,49 @@ def test_tsdf_update_card_equals_cpu(cuda):
         torch.testing.assert_close(getattr(got, f).cpu(), getattr(ref, f), rtol=1e-5, atol=1e-6)
     assert vols[0].stride == 3 and vols[0].band_steps == 2
     assert vols[0].num_voxels() > 10000
+
+
+def test_fast_nms_one_image_pyramid_and_vo_level(cuda):
+    """The kernel as the monocular and RGBD paths call it: the B = 1 pyramid
+    of one 376x1241 image at threshold 20 in one launch, and the RGBD VO's
+    one level at threshold 15, bit for bit against the plain version."""
+    from pyslam_tpu_torch.ops import image as image_ops
+    from pyslam_tpu_torch.ops.fast import fast_nms_pyramid
+
+    img = torch.as_tensor(synth_image(rng(5), 376, 1241, n_blobs=120))[None].to(cuda)
+    levels = [x.contiguous() for x in image_ops.build_pyramid(img, 8, 1.2)]
+    before = fast_nms.launches
+    got = fast_nms_pyramid(levels, 20.0)
+    one = fast_nms(img, 15.0)
+    torch.cuda.synchronize()
+    assert fast_nms.launches == before + 2
+    for g, x in zip(got, levels):
+        assert torch.equal(g, fast_nms_plain(x, 20.0))
+    assert torch.equal(one, fast_nms_plain(img, 15.0))
+
+
+def test_rgbd_virtual_right_and_lk_card_equal_cpu(cuda):
+    """compute_stereo_from_rgbd identical on the card and the CPU; LK within
+    1e-2 px where both say ok."""
+    from pyslam_tpu_torch.ops import lk
+    from pyslam_tpu_torch.slam.frame import compute_stereo_from_rgbd
+
+    r = rng(6)
+    img0 = synth_image(r, 240, 320)
+    img1 = np.ascontiguousarray(np.roll(img0, (2, -3), (0, 1)))
+    kps = np.c_[r.uniform(0, 320, 600), r.uniform(0, 240, 600)].astype(np.float32)
+    depth = r.uniform(0.0, 30.0, (240, 320)).astype(np.float32)
+    valid = r.random(600) < 0.9
+    args = [torch.as_tensor(kps), torch.as_tensor(kps + 0.3), torch.as_tensor(valid),
+            torch.as_tensor(depth)]
+    got = compute_stereo_from_rgbd(*[a.to(cuda) for a in args], 75.0, 0.1)
+    ref = compute_stereo_from_rgbd(*args, 75.0, 0.1)
+    for a, b in zip(got, ref):
+        assert torch.equal(a.cpu(), b)
+    pts = torch.as_tensor(kps[:256] * 0.8 + 20.0)
+    p_g, ok_g, _ = lk.lk_track_pyramidal(torch.as_tensor(img0).to(cuda),
+                                         torch.as_tensor(img1).to(cuda), pts.to(cuda))
+    p_c, ok_c, _ = lk.lk_track_pyramidal(torch.as_tensor(img0), torch.as_tensor(img1), pts)
+    both = ok_g.cpu() & ok_c
+    assert both.sum() > 50
+    assert float((p_g.cpu()[both] - p_c[both]).abs().max()) <= 1e-2
