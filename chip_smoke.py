@@ -72,7 +72,26 @@ Phases (one line each, and any failure exits non-zero):
      1e-2 px; the launches and kernel time of one LK call, one
      find_essential + recover_pose and one monocular initialisation; and
      the kernel as these paths call it (the B = 1 pyramid, the threshold-15
-     level) bit-equal to its plain version, timed beside its bound.
+     level) bit-equal to its plain version, timed beside its bound;
+ 12. the weight-free presets on phase 7's 60 stereo frames, each at its own
+     width, with the session's descriptor gates restored afterwards; first
+     every weight-free preset is built on the card through the factory and
+     extracts frame 0, then:
+     a. ORB2_BEBLID (512-bit BEBLID on ORB2 keypoints) with the
+        DBOW3_INDEPENDENT loop detector: the 512-bit layout through map,
+        keyframe store and vocabulary; asserts every frame tracked, ATE
+        under FEATURE_ATE_MAX and one fast_nms launch a frame;
+     b. ROOT_SIFT (cv2 SIFT on the host, RootSIFT descriptors) with
+        DBOW3_INDEPENDENT: the float layout through the whole core; the
+        same assertions without the kernel; when cv2 does not import it
+        prints so on its own line and does not run;
+     c. KAZE, card against CPU on frames 0-1: keypoints identical,
+        descriptors within KAZE_DESC_TOL, the L2 brute-force matches and
+        the float vocabulary's words identical; then a 20-frame KAZE stereo
+        session on the card, its frames tracked and resets printed beside
+        the JAX package's (which loses this stream at frame 1).
+     Prints p50 / p95 latency, FPS, keyframes and ATE of each session and a
+     ``features`` JSON line naming the sessions that ran.
 It ends with a JSON line of kernel results, the card's name and power limit,
 and, last, {"ok": true, "device": {...}}.
 """
@@ -151,6 +170,16 @@ MONO_REF_INIT_FRAME, MONO_INIT_MARGIN = 34, 10
 # the floors of the visual odometries' CPU tests (tests/test_vo.py,
 # tests/test_lk_vo_rgbd.py)
 VO_MONO_ATE_MAX, VO_RGBD_ATE_MAX = 0.4, 0.35
+# phase 12: the weight-free presets on the main stage's stream.  The JAX
+# package (python -m tests.torch_sensor_stage --package jax --sensor stereo
+# --preset P [--loop DBOW3_INDEPENDENT], CPU, x64 off) tracks all 60 frames
+# with ORB2_BEBLID (18 keyframes, ATE 0.1515 m) and with ROOT_SIFT (60
+# keyframes, ATE 0.0513 m), both with DBOW3_INDEPENDENT; it loses KAZE at
+# frame 1 and resets (WITNESS_KAZE: 8 of 20 frames tracked, 7 resets)
+FEATURE_ATE_MAX = 0.25
+KAZE_FRAMES = 20
+KAZE_DESC_TOL = 1e-3
+WITNESS_KAZE = (8, 7)
 
 
 def log(msg):
@@ -1020,6 +1049,188 @@ def one_image_kernels(dev, frames):
     return out
 
 
+def preset_session(dev, preset, frames, cam, ds, loop=None):
+    """Phase 12: a stereo session of ``preset`` (at the preset's own width)
+    with the ``loop`` detector, next-frame prefetch, then finish(); the
+    descriptor gates that Slam writes into Parameters are restored.
+    Returns the session's numbers."""
+    import torch
+
+    from pyslam_tpu_torch.config_parameters import Parameters
+    from pyslam_tpu_torch.evaluation.metrics import eval_ate
+    from pyslam_tpu_torch.io.dataset_types import SensorType
+    from pyslam_tpu_torch.ops.fast import fast_nms
+    from pyslam_tpu_torch.slam.slam import Slam
+
+    gates = {k: getattr(Parameters, k) for k in ("kMaxDescriptorDistance",
+                                                 "kMaxOrbDistanceSearchByReproj")}
+    tag = f"[features] {preset}"
+    try:
+        slam = Slam(cam, preset, loop_detector_config=loop, sensor_type=SensorType.STEREO,
+                    device=dev)
+        resets = []
+        reset = slam.reset
+
+        def counted_reset():
+            resets.append(i)
+            reset()
+
+        slam.reset = counted_reset
+        torch.cuda.synchronize()
+        fast_nms.launches = 0
+        lats, t_start, n = [], None, len(frames)
+        for i, (img_l, img_r, ts) in enumerate(frames):
+            if i == 10:
+                t_start = time.perf_counter()
+            nxt = None
+            if i + 1 < n:
+                nl, nr, nts = frames[i + 1]
+                nxt = {"img": nl, "img_right": nr, "frame_id": i + 1, "timestamp": nts}
+            t1 = time.perf_counter()
+            slam.track(img_l, img_right=img_r, frame_id=i, timestamp=ts, next_input=nxt)
+            lats.append(time.perf_counter() - t1)
+            if i % 10 == 0:
+                log(f"{tag} frame {i}: {lats[-1] * 1e3:.1f} ms, {slam.map.num_keyframes()} "
+                    f"keyframes, {slam.map.num_points()} points")
+        slam.finish()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t_start
+        ts_est, poses = slam.get_final_trajectory()
+        gt_t = np.asarray([ds.getTimestamp(i) for i in range(n)])
+        lat_ms = np.asarray(lats[10:]) * 1e3
+        out = dict(preset=preset, loop=loop, launches=fast_nms.launches, resets=len(resets),
+                   n_tracked=len(slam.tracking.history.timestamps),
+                   keyframes=slam.map.num_keyframes(), points=slam.map.num_points(),
+                   desc=f"{slam.map.points.desc.shape[1]}x{slam.map.points.desc.dtype}",
+                   fps=(n - 10) / wall, p50_ms=float(np.percentile(lat_ms, 50)),
+                   p95_ms=float(np.percentile(lat_ms, 95)),
+                   ate=(float(eval_ate(ts_est, poses[:, :3, 3], gt_t, ds.poses[:n, :3, 3],
+                                       align=True, with_scale=False).rmse)
+                        if len(ts_est) >= 3 else float("nan")))
+        assert slam.map.device.type == torch.device(dev).type
+        log(f"{tag} loop={loop}: {out['fps']:.2f} FPS over frames 10-{n - 1} (incl. final "
+            f"drain), latency p50 {out['p50_ms']:.1f} ms p95 {out['p95_ms']:.1f} ms; "
+            f"{out['n_tracked']}/{n} tracked, {out['resets']} resets, {out['keyframes']} "
+            f"keyframes, {out['points']} points ({out['desc']} descriptors), ATE "
+            f"{out['ate']:.4f} m; fast_nms launches {out['launches']}")
+        log(f"{tag} stage totals: " + json.dumps(
+            {mod: {k: round(v["total_ms"], 1) for k, v in st.items()}
+             for mod, st in slam.timings().items()}))
+        del slam
+        torch.cuda.empty_cache()
+        return out
+    finally:
+        for k, v in gates.items():
+            setattr(Parameters, k, v)
+
+
+def kaze_card_vs_cpu(dev, frames):
+    """Phase 12c: KAZE on frames 0-1, card against CPU: keypoints,
+    descriptors, the L2 brute-force matches and the float flat
+    vocabulary's words."""
+    import torch
+
+    from pyslam_tpu_torch.features.tracker import feature_tracker_factory
+    from pyslam_tpu_torch.loop_closing.vocabulary import BinaryVocabulary
+
+    trackers = [feature_tracker_factory("KAZE", device=d) for d in (dev, "cpu")]
+    feats = [[tr.detectAndCompute(frames[i][0]) for i in (0, 1)] for tr in trackers]
+    torch.cuda.synchronize()
+    g0, c0 = [[x.cpu().numpy() for x in f[0]] for f in feats]
+    names = feats[0][0]._fields
+    for name in ("xy", "valid", "level", "response", "size"):
+        a, b = g0[names.index(name)], c0[names.index(name)]
+        assert np.array_equal(a, b), f"KAZE {name} differs on the card"
+    desc_err = float(np.abs(g0[names.index("desc")] - c0[names.index("desc")]).max())
+    ang = np.abs((g0[names.index("angle")] - c0[names.index("angle")] + 180.0) % 360.0 - 180.0)
+    assert desc_err <= KAZE_DESC_TOL, desc_err
+    matches = [tr.match(f[0], f[1]) for tr, f in zip(trackers, feats)]
+    for a, b in zip(matches[0], matches[1]):
+        assert np.array_equal(a, b), "KAZE L2 matches differ on the card"
+    # the flat float vocabulary of DBOW3_INDEPENDENT on each device, seeded
+    # and trained from the same host descriptors, quantising each device's
+    seed = c0[names.index("desc")][c0[names.index("valid")]]
+    both = np.concatenate([f.desc[f.valid].cpu().numpy() for f in feats[1]])
+    vocs = [BinaryVocabulary(num_words=4096, device=d) for d in (dev, "cpu")]
+    words = []
+    for voc, f in zip(vocs, feats):
+        voc.seed_from_descriptors(seed)
+        voc.train_kmeans(both)
+        words.append([voc.words_for(x.desc, x.valid) for x in f])
+    cent_err = float(np.abs(vocs[0].words_bits - vocs[1].words_bits).max())
+    for a, b in zip(words[0], words[1]):
+        assert np.array_equal(a, b), "float vocabulary words differ on the card"
+    out = dict(keypoints=int(g0[names.index("valid")].sum()), desc_max_abs_err=desc_err,
+               angle_max_deg=float(ang.max()), matches=int(len(matches[0][0])),
+               centroid_max_abs_err=cent_err,
+               distinct_words=int(len(np.unique(np.concatenate(words[0])))))
+    log(f"[features] KAZE card against CPU, frames 0-1: {out['keypoints']} keypoints, xy / "
+        f"valid / level / response / size identical; descriptors within {desc_err:.3g} "
+        f"(tolerance {KAZE_DESC_TOL}), angles within {out['angle_max_deg']:.3g} deg; "
+        f"{out['matches']} L2 brute-force matches identical; the float vocabulary's "
+        f"centroids within {cent_err:.3g}, words of both frames identical "
+        f"({out['distinct_words']} distinct)")
+    return out
+
+
+def presets_on_card(dev, img):
+    """Every weight-free preset built on the card through the factory, each
+    extracting ``img``: valid keypoints and descriptor layout by preset."""
+    import torch
+
+    from pyslam_tpu_torch.features.tracker import WEIGHT_FREE_PRESETS, feature_tracker_factory
+
+    out = {}
+    for name in WEIGHT_FREE_PRESETS:
+        if name in ("SIFT", "ROOT_SIFT"):
+            try:
+                import cv2  # noqa: F401
+            except ImportError:
+                continue
+        fd = feature_tracker_factory(name, device=dev).detectAndCompute(img)
+        assert fd.desc.device.type == fd.xy.device.type == torch.device(dev).type, name
+        out[name] = f"{int(fd.valid.sum())} x {fd.desc.shape[1]} {str(fd.desc.dtype)[6:]}"
+    log("[features] every weight-free preset built on the card, frame 0 extracted "
+        "(valid keypoints x descriptor layout): " + json.dumps(out))
+    return out
+
+
+def features_phase(dev, frames, cam, ds):
+    """Phase 12: the weight-free presets' sessions; returns their numbers."""
+    out = {"sessions": [], "presets": presets_on_card(dev, frames[0][0])}
+    beblid = preset_session(dev, "ORB2_BEBLID", frames, cam, ds, loop="DBOW3_INDEPENDENT")
+    n = len(frames)
+    assert beblid["launches"] == n, f"{beblid['launches']} fast_nms launches for {n} frames"
+    assert beblid["n_tracked"] == n, f"ORB2_BEBLID {beblid['n_tracked']}/{n} tracked"
+    assert beblid["ate"] < FEATURE_ATE_MAX and beblid["desc"] == "512xint8", beblid
+    out["ORB2_BEBLID"] = beblid
+    out["sessions"].append("ORB2_BEBLID+DBOW3_INDEPENDENT")
+    try:
+        import cv2  # noqa: F401
+        has_cv2 = True
+    except ImportError:
+        has_cv2 = False
+    out["cv2"] = has_cv2
+    if has_cv2:
+        sift = preset_session(dev, "ROOT_SIFT", frames, cam, ds, loop="DBOW3_INDEPENDENT")
+        assert sift["n_tracked"] == n, f"ROOT_SIFT {sift['n_tracked']}/{n} tracked"
+        assert sift["ate"] < FEATURE_ATE_MAX and sift["desc"] == "128xfloat32", sift
+        out["ROOT_SIFT"] = sift
+        out["sessions"].append("ROOT_SIFT+DBOW3_INDEPENDENT")
+    else:
+        print("[features] cv2 not importable: ROOT_SIFT session not run", flush=True)
+    out["kaze_card_vs_cpu"] = kaze_card_vs_cpu(dev, frames)
+    out["sessions"].append("KAZE card-vs-CPU")
+    kaze = preset_session(dev, "KAZE", frames[:KAZE_FRAMES], cam, ds)
+    assert kaze["desc"] in ("64xfloat32", "256xint8"), kaze
+    out["KAZE"] = kaze
+    out["sessions"].append("KAZE")
+    log(f"[features] KAZE {KAZE_FRAMES} frames on the card: {kaze['n_tracked']} tracked, "
+        f"{kaze['resets']} resets; the JAX package on the CPU: {WITNESS_KAZE[0]} tracked, "
+        f"{WITNESS_KAZE[1]} resets")
+    return out
+
+
 def main():
     import torch
 
@@ -1295,6 +1506,10 @@ def main():
         "card_vs_cpu": card, "mono_init_cost": init_cost, "kernel_calls": one},
         default=float))
 
+    # ---------------------------------------------------------------- 12
+    feats = features_phase(dev, frames, cam, ds)
+    print(json.dumps({"features": feats}, default=float), flush=True)
+
     print(json.dumps({"kernels": [{
         "name": "fast_nms", "route": "cuda",
         "source": "pyslam_tpu_torch/csrc/fast_nms.cu",
@@ -1303,6 +1518,7 @@ def main():
         "launches_loop_stage": loop_launches,
         "launches_rgbd_stage": rgbd["launches"], "launches_mono_stage": mono["launches"],
         "launches_vo_mono": vo["mono"]["launches"], "launches_vo_rgbd": vo["rgbd"]["launches"],
+        "launches_beblid_stage": feats["ORB2_BEBLID"]["launches"],
         "mono_frame": one["b1_pyramid"], "vo_rgbd_level_th15": one["vo_level_th15"],
         "max_abs_err": max_err, "ms": kern_ms, "plain_ms": plain_ms,
         "bound_ms": work["bound_ms"], "bound_by": work["bound_by"], "library_ms": None,

@@ -23,6 +23,7 @@ class Parameters:
 
     # ------------------------------------------------------------ matching
     kMaxDescriptorDistance = 100            # ORB Hamming acceptance (ref feature_types.py:164)
+    kMatchRatioTest = 0.75                  # Lowe ratio for generic matching
     kMatchRatioTestMap = 0.8                # ratio used when matching against map
     kCheckOrientation = True                # rotation-histogram consistency filter
 

@@ -28,8 +28,9 @@ class FeatureData(NamedTuple):
     leading batch dimension when a batch was extracted.
 
     xy (N, 2) float32, level (N,) int64, angle (N,) float32 degrees in
-    [0, 360), size (N,) float32, response (N,) float32,
-    desc (N, 256) int8 bits, valid (N,) bool.
+    [0, 360), size (N,) float32, response (N,) float32, desc (N, D): int8
+    0/1 bits (256 for ORB2, 486 or 512 for the other binary descriptors)
+    or float32 (SIFT, SURF, KAZE), valid (N,) bool.
     """
 
     xy: torch.Tensor
@@ -102,12 +103,15 @@ def extract_pyramid(pyr: list[torch.Tensor], num_features: int, scale: float,
 
 
 def stereo_match(fl: FeatureData, fr: FeatureData, bf: float, max_disp: float,
-                 max_distance: float, row_tol: float):
-    """Row-constrained left/right match of one stereo pair.
+                 max_distance: float, row_tol: float,
+                 distance=hamming.descriptor_distance_matrix):
+    """Row-constrained left/right match of one stereo pair; ``distance``
+    is the descriptor distance (the matcher's; by default the dtype
+    dispatch: Hamming for bits, L2 for floats).
 
     Returns (ur, depth): per left keypoint the right-image u and the depth,
     -1 where unmatched."""
-    d = hamming.hamming_distance_matrix(fl.desc, fr.desc)
+    d = distance(fl.desc, fr.desc)
     disp = fl.xy[:, 0:1] - fr.xy[None, :, 0]
     idx, _ = matching.row_stereo_match(
         d, fl.xy[:, 1], fr.xy[:, 1], disp, max_distance=max_distance,

@@ -108,3 +108,13 @@ FEATURE_INFO = {
     FeatureDescriptorTypes.KAZE: FeatureInfo(NormType.L2, 0.3),
     FeatureDescriptorTypes.AKAZE: FeatureInfo(NormType.HAMMING, 190.0),
 }
+
+# descriptor types computed by a patch network over the detector's keypoints
+PATCH_DESCRIPTOR_TYPES = (
+    FeatureDescriptorTypes.HARDNET,
+    FeatureDescriptorTypes.SOSNET,
+    FeatureDescriptorTypes.L2NET,
+    FeatureDescriptorTypes.TFEAT,
+    FeatureDescriptorTypes.GEODESC,
+    FeatureDescriptorTypes.LOGPOLAR,
+)

@@ -16,6 +16,7 @@ import base64
 import numpy as np
 import torch
 
+from pyslam_tpu_torch.ops import hamming
 from pyslam_tpu_torch.ops.voxel_hash import VoxelHashTable
 from pyslam_tpu_torch.slam.frame import Frame, KeyFrame
 from pyslam_tpu_torch.slam.map import Map
@@ -29,7 +30,7 @@ def _unb64(d: dict) -> np.ndarray:
 def _desc(d: dict, key: str) -> np.ndarray:
     if f"{key}_float" in d:
         return _unb64(d[f"{key}_float"])
-    return np.unpackbits(_unb64(d[f"{key}_packed"]), axis=1).astype(np.int8)
+    return hamming.np_unpack(_unb64(d[f"{key}_packed"]))
 
 
 def map_from_tpu_json(d: dict, camera, feature_tracker) -> Map:
@@ -48,7 +49,9 @@ def map_from_tpu_json(d: dict, camera, feature_tracker) -> Map:
             st._grow()
         st.size = max(st.size, needed, int(d.get("max_point_id", 0)))
         st.pos[ids] = _unb64(pts["pos"])
-        st.desc[ids] = _desc(pts, "desc")
+        desc = _desc(pts, "desc")
+        st.ensure_desc_layout(desc)
+        st.desc[ids] = desc
         st.normal[ids] = _unb64(pts["normal"])
         st.min_dist[ids] = _unb64(pts["min_dist"])
         st.max_dist[ids] = _unb64(pts["max_dist"])

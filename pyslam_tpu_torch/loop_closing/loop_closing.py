@@ -11,7 +11,9 @@ weighted toward near points, a Sim(3) LM refinement, and enrichment by
 projecting the loop side through the estimate.  Correction: local mapping
 is drained, the Sim(3) is propagated to the current covisibility group and
 its points, loop points are fused, the essential graph is optimised over
-Sim(3), and a global BA is dispatched to run asynchronously.
+Sim(3) (with ORB-SLAM's loop connections and point references, where the
+reference departs from them: ``_essential_graph_pgo``), and a global BA is
+dispatched to run asynchronously.
 
 Host bookkeeping is numpy; the matching, RANSAC, LM, pose graph and BA run
 on the device.  The learned and VLAD/SAD detectors and the serialisation of
@@ -260,8 +262,8 @@ class LoopClosing:
 
         # descriptor matching of the two point sets, gated to shared
         # direct-index subtrees when that leaves enough pairs
-        d = hamming.hamming_distance_matrix(self._put(st.desc[pids1], np.int8),
-                                            self._put(st.desc[pids2], np.int8))
+        d = hamming.descriptor_distance_matrix(self._put(st.desc[pids1], st.desc.dtype),
+                                               self._put(st.desc[pids2], st.desc.dtype))
         voc = self.detector.vocabulary
         kp_words1 = self.db.kf_kp_words.get(kf.kid)
         idx = None
@@ -350,7 +352,7 @@ class LoopClosing:
         pos_p, valid_p = pad_bucket(st.pos[loop_pids])
         mm = len(valid_p)
         _, kp_match, _ = slam_matching.search_by_projection(
-            self._put(pos_p), self._put(pad_rows(st.desc[loop_pids], mm), np.int8),
+            self._put(pos_p), self._put(pad_rows(st.desc[loop_pids], mm), st.desc.dtype),
             self._put(pad_rows(normals, mm)), torch.zeros(mm, device=self.device),
             torch.full((mm,), 1e9, device=self.device), self._put(valid_p, bool),
             kf.dev("kps"), kf.dev("levels"), kf.dev("des"), kf.dev("valid"), kf.dev("kps_ur"),
@@ -379,8 +381,9 @@ class LoopClosing:
         for kid in group:
             corrected[kid] = self._se3_to_S(m.keyframes[kid].Tcw @ Twc_cur) @ S_cur_corrected
 
-        # the group's points: p' = S_new^-1 (S_old p)
-        moved: set[int] = set()
+        # the group's points: p' = S_new^-1 (S_old p); each remembers the
+        # keyframe that corrected it
+        moved: dict[int, int] = {}
         for kid in group:
             kf_i = m.keyframes[kid]
             pids = kf_i.points[kf_i.points >= 0]
@@ -388,7 +391,7 @@ class LoopClosing:
             fresh = [int(p) for p in pids if int(p) not in moved]
             if not fresh:
                 continue
-            moved.update(fresh)
+            moved.update((p, kid) for p in fresh)
             fresh = np.asarray(fresh)
             st.pos[fresh] = self._sim3_apply(np.linalg.inv(corrected[kid]) @ S_old[kid],
                                              st.pos[fresh])
@@ -398,9 +401,15 @@ class LoopClosing:
             m.keyframes[kid].update_pose(self._S_to_T(corrected[kid]))
         kf.loop_edges.add(cand.kid)
         cand.loop_edges.add(kf.kid)
+        before = {kid: set(m.keyframes[kid].connected_keyframes) for kid in group}
         self._fuse_loop_points(kf, cand)
+        # the loop connections: covisibility links that the fusion made
+        # between the corrected group and the loop's side
+        seam = {(min(a, b), max(a, b)) for a in group
+                for b in m.keyframes[a].connected_keyframes
+                if b not in before[a] and b not in corrected}
         with self.timings.stage("pgo"):
-            self._essential_graph_pgo(kf, cand, S_old, corrected)
+            self._essential_graph_pgo(kf, cand, S_old, corrected, seam, moved)
         # the polishing GBA runs as polled chunks while tracking goes on; it
         # supersedes a solve still in flight from an earlier loop
         self.gba.dispatch(m, iters=Parameters.kOptimizerGBAIterations)
@@ -424,7 +433,8 @@ class LoopClosing:
             pos_p, valid_p = pad_bucket(st.pos[cand_pids])
             mm = len(valid_p)
             best_kp, _ = slam_matching.fuse_candidates(
-                self._put(pos_p)[None], self._put(pad_rows(st.desc[cand_pids], mm), np.int8)[None],
+                self._put(pos_p)[None],
+                self._put(pad_rows(st.desc[cand_pids], mm), st.desc.dtype)[None],
                 self._put(pad_rows(st.normal[cand_pids], mm))[None],
                 self._put(pad_rows(st.min_dist[cand_pids], mm))[None],
                 self._put(pad_rows(st.max_dist[cand_pids], mm, fill=1.0))[None],
@@ -445,11 +455,21 @@ class LoopClosing:
                     m.add_observation(pid, kf_i, int(kp_idx))
             m.update_connections(kf_i)
 
-    def _essential_graph_pgo(self, kf, cand, S_old, corrected):
+    def _essential_graph_pgo(self, kf, cand, S_old, corrected, seam, corrected_by):
         """Sim(3) PGO of the essential graph: spanning tree, loop edges and
-        covisibility >= 100.  An edge inside the corrected group and the new
-        loop edge are measured between the corrected poses, every other
-        edge keeps its pre-correction relative pose."""
+        covisibility >= 100.  An edge inside the corrected group, the new
+        loop edge and the loop connections ``seam`` (links the fusion made
+        across the loop, ORB-SLAM's LoopConnections) are measured between
+        the corrected poses; every other edge keeps its pre-correction
+        relative pose.  The reference measures the loop connections before
+        the correction too, which pulls the two sides of the loop back
+        apart by the drift the loop removes.
+
+        Each point then moves with its reference keyframe's change: the
+        keyframe that corrected it (``corrected_by``, ORB-SLAM's
+        mnCorrectedReference), else its oldest observer.  The reference
+        takes the oldest observer for every point, so a group point that an
+        older keyframe outside the group also sees is corrected twice."""
         m = self.map
         kids = list(m.keyframe_order)
         row = {kid: i for i, kid in enumerate(kids)}
@@ -476,7 +496,7 @@ class LoopClosing:
         group = set(corrected.keys())
         S_meas = []
         for a, b in edges:
-            if {a, b} == {kf.kid, cand.kid} or (a in group and b in group):
+            if {a, b} == {kf.kid, cand.kid} or (a, b) in seam or (a in group and b in group):
                 Sa, Sb = corrected.get(a, S_old[a]), corrected.get(b, S_old[b])
             else:
                 Sa, Sb = S_old[a], S_old[b]
@@ -493,13 +513,17 @@ class LoopClosing:
             Printer.red("PGO diverged (non-finite poses): discarding correction")
             return
 
-        # points move with their reference (oldest observing) keyframe
+        # points move with their reference keyframe
         st = m.points
         by_kid: dict[int, list[int]] = {}
         for pid in st.alive_ids():
-            obs = m.observations.get(int(pid))
-            if obs:
-                by_kid.setdefault(min(obs.keys()), []).append(int(pid))
+            ref = corrected_by.get(int(pid))
+            if ref is None:
+                obs = m.observations.get(int(pid))
+                if not obs:
+                    continue
+                ref = min(obs.keys())
+            by_kid.setdefault(ref, []).append(int(pid))
         for ref_kid, pids in by_kid.items():
             if ref_kid not in row:
                 continue

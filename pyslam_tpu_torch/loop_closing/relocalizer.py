@@ -88,7 +88,8 @@ class Relocalizer:
             if len(pids) < 15:
                 continue
 
-            d = hamming.hamming_distance_matrix(put(st.desc[pids], np.int8), frame.dev("des"))
+            d = hamming.descriptor_distance_matrix(put(st.desc[pids], st.desc.dtype),
+                                                   frame.dev("des"))
             idx = None
             mask = self._guided_mask(kid, kf_slots)
             if mask is not None:
@@ -131,7 +132,7 @@ class Relocalizer:
                 pos_p, valid_p = pad_bucket(st.pos[local])
                 m = len(valid_p)
                 _, kp_match, _ = slam_matching.search_by_projection(
-                    put(pos_p), put(pad_rows(st.desc[local], m), np.int8),
+                    put(pos_p), put(pad_rows(st.desc[local], m), st.desc.dtype),
                     put(pad_rows(st.normal[local], m)), put(pad_rows(st.min_dist[local], m)),
                     put(pad_rows(st.max_dist[local], m, fill=1.0)), put(valid_p, bool),
                     frame.dev("kps"), frame.dev("levels"), frame.dev("des"),

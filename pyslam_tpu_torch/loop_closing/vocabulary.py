@@ -1,14 +1,19 @@
-"""Binary bag-of-words vocabularies with device quantisation (port of
+"""Bag-of-words vocabularies with device quantisation (port of
 ``pyslam_tpu/loop_closing/vocabulary.py``).
 
-The training code is host numpy, copied from the reference, so a vocabulary
-trained from the same descriptors with the same seed is identical bit for
-bit.  Quantisation runs on the vocabulary's device: the flat codebook as one
-Hamming matrix and argmin, the k-ary tree as ``depth`` rounds of an L1
-distance to the current node's children over 0/1 bit-planes in float32
-(exact integers) and an argmin that keeps the first index.  Only binary
-(0/1 bit-plane) descriptors are quantised on the device; the port's
-features are ORB2.  The pretrained DBoW3 import and the ``.npz``
+A vocabulary adopts the session's descriptor layout: 0/1 bit-planes (ORB2,
+the 512-bit patterns, AKAZE's 486 bits) get binary codewords (bit-flip
+jitter, majority-vote k-means, Hamming quantisation), float descriptors
+(SIFT, SURF, KAZE) get float codewords (Gaussian jitter, mean-centroid
+k-means, L2 quantisation).  The tree's training code is host numpy, copied
+from the reference, so a vocabulary trained from the same descriptors with
+the same seed is identical bit for bit.  The flat codebook's k-means and
+every quantisation run on the vocabulary's device: the flat codebook as one
+distance matrix and argmin, the k-ary tree as ``depth`` rounds of an L1
+distance to the current node's children in float32 and an argmin that
+keeps the first index.  A float centroid sums its members in row order, as
+the reference's scatter-add does, on the CPU and the card alike
+(``_ordered_segment_sum``).  The pretrained DBoW3 import and the ``.npz``
 serialisation come with the serialisation slice.
 """
 
@@ -20,16 +25,30 @@ import torch
 from pyslam_tpu_torch.ops import hamming
 
 
-def _device_bits(x, device: torch.device) -> torch.Tensor:
+def _device_desc(x, device: torch.device) -> torch.Tensor:
     if isinstance(x, torch.Tensor):
         if x.device.type != device.type:
             raise ValueError(f"descriptors on {x.device}, vocabulary on {device}")
-        t = x
-    else:
-        t = torch.as_tensor(np.asarray(x)).to(device)
-    if t.is_floating_point():
-        raise NotImplementedError("float descriptors are not quantised by the port yet")
-    return t
+        return x
+    return torch.as_tensor(np.asarray(x)).to(device)
+
+
+def _ordered_segment_sum(x: torch.Tensor, seg: torch.Tensor, num_segments: int) -> torch.Tensor:
+    """(N, D) rows summed into ``num_segments`` rows by ``seg`` (N,), each
+    segment's members added one at a time in row order (the sequential
+    scatter-add of the reference's CPU backend).  Each round adds the r-th
+    member of every segment, so no two adds of a round meet in one row:
+    the sums do not depend on the device's scheduling."""
+    order = torch.sort(seg, stable=True).indices
+    seg_sorted = seg[order]
+    counts = torch.bincount(seg, minlength=num_segments)
+    starts = torch.cumsum(counts, 0) - counts
+    rank = torch.arange(seg.shape[0], device=seg.device) - starts[seg_sorted]
+    out = torch.zeros((num_segments, x.shape[1]), dtype=x.dtype, device=x.device)
+    for r in range(int(counts.max()) if seg.numel() else 0):
+        sel = torch.nonzero(rank == r)[:, 0]
+        out.index_add_(0, seg_sorted[sel], x[order[sel]])
+    return out
 
 
 def _host(x) -> np.ndarray:
@@ -37,9 +56,9 @@ def _host(x) -> np.ndarray:
 
 
 def quantize(desc_bits: torch.Tensor, vocab_bits: torch.Tensor, valid: torch.Tensor):
-    """(N, D) bit descriptors -> (N,) word ids of the nearest codeword
-    (first index on ties), -1 where invalid."""
-    words = torch.argmin(hamming.hamming_distance_matrix(desc_bits, vocab_bits), 1)
+    """(N, D) descriptors -> (N,) word ids of the nearest codeword (Hamming
+    for bits, L2 for floats; first index on ties), -1 where invalid."""
+    words = torch.argmin(hamming.descriptor_distance_matrix(desc_bits, vocab_bits), 1)
     return torch.where(valid, words, torch.full_like(words, -1))
 
 
@@ -85,8 +104,9 @@ class _DocumentStats:
 
 
 class BinaryVocabulary(_DocumentStats):
-    """Flat binary codebook, self-seeded from the first descriptors it sees
-    (sampled and bit-flip jittered) and refined by binary k-means."""
+    """Flat codebook, self-seeded from the first descriptors it sees
+    (sampled, then bit-flip jittered for bits or Gaussian-jittered for
+    floats) and refined by k-means."""
 
     def __init__(self, num_words: int = 4096, seed: int = 77, *,
                  device: torch.device | str = "cuda"):
@@ -126,19 +146,26 @@ class BinaryVocabulary(_DocumentStats):
         self.seeded = True
 
     def train_kmeans(self, descriptors: np.ndarray, iters: int = 4):
-        """Binary k-means on the device: majority vote per cluster and bit,
-        empty clusters keep their codeword."""
-        desc = _device_bits(np.asarray(descriptors, np.int8), self.device)
+        """k-means on the device, empty clusters keeping their codeword:
+        a majority vote per cluster and bit for bit-planes, the mean for
+        float descriptors."""
+        is_float = np.issubdtype(np.asarray(descriptors).dtype, np.floating)
+        desc = _device_desc(np.asarray(descriptors, np.float32 if is_float else np.int8),
+                            self.device)
         vocab = self._words_dev
         descf = desc.to(torch.float32)
         for _ in range(iters):
-            assign = torch.argmin(hamming.hamming_distance_matrix(desc, vocab), 1)
-            sums = torch.zeros((self.num_words, desc.shape[1]), dtype=torch.float32,
-                               device=self.device).index_add_(0, assign, descf)
+            assign = torch.argmin(hamming.descriptor_distance_matrix(desc, vocab), 1)
             counts = torch.zeros(self.num_words, dtype=torch.float32,
                                  device=self.device).index_add_(
                 0, assign, torch.ones_like(descf[:, 0]))
-            new = (sums > counts[:, None] * 0.5).to(torch.int8)
+            if is_float:
+                sums = _ordered_segment_sum(descf, assign, self.num_words)
+                new = sums / torch.clamp(counts[:, None], min=1.0)
+            else:   # sums of 0/1 bits are exact in any order
+                sums = torch.zeros((self.num_words, desc.shape[1]), dtype=torch.float32,
+                                   device=self.device).index_add_(0, assign, descf)
+                new = (sums > counts[:, None] * 0.5).to(torch.int8)
             vocab = torch.where((counts > 0)[:, None], new, vocab)
         self.words_bits = vocab.cpu().numpy()
         self._upload()
@@ -148,7 +175,7 @@ class BinaryVocabulary(_DocumentStats):
         if not self.seeded:
             self.seed_from_descriptors(_host(desc_bits)[_host(valid)])
         valid = torch.as_tensor(_host(valid)).to(self.device)
-        return quantize(_device_bits(desc_bits, self.device), self._words_dev,
+        return quantize(_device_desc(desc_bits, self.device), self._words_dev,
                         valid).cpu().numpy()
 
 
@@ -313,7 +340,7 @@ class HierarchicalVocabulary(_DocumentStats):
             self.seed_from_descriptors(_host(desc)[_host(valid)])
         c, ch, nw = self._dev
         valid = torch.as_tensor(_host(valid)).to(self.device)
-        return quantize_tree(_device_bits(desc, self.device), valid, c, ch, nw,
+        return quantize_tree(_device_desc(desc, self.device), valid, c, ch, nw,
                              self.depth).cpu().numpy()
 
     def level_nodes_for(self, words: np.ndarray, level: int) -> np.ndarray:

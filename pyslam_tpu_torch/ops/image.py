@@ -253,3 +253,47 @@ def bilinear_sample(img: torch.Tensor, xy: torch.Tensor) -> torch.Tensor:
     v10, v11 = flat[y1 * w + x0], flat[y1 * w + x1]
     return (v00 * (1 - fx) * (1 - fy) + v01 * fx * (1 - fy) + v10 * (1 - fx) * fy
             + v11 * fx * fy)
+
+
+def gray_image(img, device) -> torch.Tensor:
+    """A grey (H, W) or colour (H, W, 3) image, numpy or tensor -> (H, W)
+    float32 on ``device`` (colour channels averaged)."""
+    t = img if isinstance(img, torch.Tensor) else torch.as_tensor(np.asarray(img, np.float32))
+    t = t.to(device=device, dtype=torch.float32)
+    return t.mean(-1) if t.dim() == 3 else t
+
+
+_SCAN_BASE = 16   # XLA's reduce-window rewrite: blocks of 16, then the block sums
+
+
+def cumsum_xla(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """Inclusive prefix sum along ``dim``, rounded as the reference's CPU
+    backend rounds ``jnp.cumsum``: XLA rewrites the cumulative reduce-window
+    into blocks of 16 (zero-padded at the end), sums each block from its
+    start one element at a time, scans the block totals the same way
+    (recursively), and adds each block's exclusive prefix to its partial
+    sums.  Plain ``torch.cumsum`` associates differently, which matters for
+    float32 integral images that pass 2^24."""
+    x = x.movedim(dim, -1)
+    n = x.shape[-1]
+    b = _SCAN_BASE
+    if n <= b:
+        out = x.clone()
+        for i in range(1, n):
+            out[..., i] = out[..., i - 1] + x[..., i]
+        return out.movedim(-1, dim)
+    nb = -(-n // b)
+    xp = torch.nn.functional.pad(x, (0, nb * b - n)).reshape(*x.shape[:-1], nb, b)
+    inner = cumsum_xla(xp, -1)
+    outer = cumsum_xla(inner[..., -1], -1)
+    excl = torch.cat([torch.zeros_like(outer[..., :1]), outer[..., :-1]], -1)
+    out = (inner + excl[..., None]).reshape(*x.shape[:-1], nb * b)[..., :n]
+    return out.movedim(-1, dim)
+
+
+def integral_image(img: torch.Tensor) -> torch.Tensor:
+    """(H, W) -> (H + 1, W + 1) summed-area table with a zero first row and
+    column: the reference's ``pad(cumsum(cumsum(img, 0), 1))`` in its
+    rounding (``cumsum_xla``)."""
+    ii = cumsum_xla(cumsum_xla(img, 0), 1)
+    return torch.nn.functional.pad(ii, (1, 0, 1, 0))

@@ -67,6 +67,17 @@ def match_ratio_test(dmat, max_distance: float, ratio: float = 0.75, valid_a=Non
     return idx, torch.where(ok, d1, torch.full_like(d1, INF))
 
 
+def match_nn(dmat, max_distance: float, valid_a=None, valid_b=None, extra_mask=None):
+    """Plain nearest-neighbour matching with a distance gate (no ratio
+    test, no cross-check): (idx_b (..., N) int64 or -1, dist (..., N))."""
+    d = mask_distance_matrix(dmat, valid_a, valid_b, extra_mask)
+    i1 = torch.argmin(d, -1)
+    d1 = torch.gather(d, -1, i1[..., None])[..., 0]
+    ok = d1 <= max_distance
+    return (torch.where(ok, i1, torch.full_like(i1, -1)),
+            torch.where(ok, d1, torch.full_like(d1, INF)))
+
+
 def rotation_histogram_filter(angles_a, angles_b_matched, match_ok,
                               num_bins: int = 30, keep_top: int = 3):
     """Keep the matches whose angle difference (degrees) falls into one of

@@ -4,7 +4,9 @@ fusion candidates (port of ``pyslam_tpu/ops/slam_matching.py:26-399``).
 Each search is one masked dense problem: project the candidate map points,
 build the (M, N) Hamming matrix, AND in the geometric gates (radius scaled
 by the predicted octave, scale-invariance range, viewing angle, octave
-agreement, epipolar distance), then a masked one-to-one argmin.  -1 marks no
+agreement, epipolar distance), then a masked one-to-one argmin.  The
+descriptor distance dispatches on the dtype as the reference's does
+(``hamming.descriptor_distance_matrix``: Hamming for bits, L2 for floats).  -1 marks no
 match.  The back-end matchers batch over neighbour keyframes, which
 ``fuse_candidates_kfstore`` gathers from the stacked device store
 (``slam/kf_device_store.py``).
@@ -38,7 +40,9 @@ def _point_gates(pts_w, pt_normal, pt_min_dist, pt_max_dist, pt_valid, Tcw,
               & (v >= image_bounds[2]) & (v < image_bounds[3]))
     in_range = (dist >= pt_min_dist * 0.8) & (dist <= pt_max_dist * 1.2)
     pt_ok = pt_valid & (z > 0) & in_img & in_range & (view_cos > view_cos_limit)
-    log_scale = torch.log(scale_factors[1] / scale_factors[0])
+    # a one-level extractor (SURF, Shi-Tomasi): the reference's gather
+    # clamps the index to level 0, and every predicted level clamps to 0
+    log_scale = torch.log(scale_factors[min(1, L - 1)] / scale_factors[0])
     ratio_d = torch.clamp(pt_max_dist / torch.clamp(dist, min=1e-9), min=1e-9)
     pred_level = torch.clamp(torch.ceil(torch.log(ratio_d) / log_scale).to(torch.int64),
                              0, L - 1)
@@ -64,7 +68,7 @@ def search_by_projection(pts_w, pt_desc, pt_normal, pt_min_dist, pt_max_dist, pt
     level_ok = ((kp_level[None, :] >= pred_level[:, None] - 1)
                 & (kp_level[None, :] <= pred_level[:, None] + 1))
     pair_ok = in_window & level_ok & pt_ok[:, None] & kp_valid[None, :]
-    dmat = hamming.hamming_distance_matrix(pt_desc, kp_desc)
+    dmat = hamming.descriptor_distance_matrix(pt_desc, kp_desc)
     idx, _ = matching.match_ratio_test(dmat, max_descriptor_distance, ratio=ratio,
                                        valid_a=pt_ok, valid_b=kp_valid,
                                        cross_check=True, extra_mask=pair_ok)
@@ -97,7 +101,7 @@ def epipolar_triangulation_match(kps1, level1, desc1, free1, kps2, level2, desc2
     de = torch.sum((kps2 - epipole2[:, None, :]) ** 2, -1)
     far_from_epipole = de > 100.0 * s2
     pair_ok = epi_ok & free1[None, :, None] & (free2 & far_from_epipole)[:, None, :]
-    dmat = hamming.hamming_distance_matrix(desc1[None], desc2)
+    dmat = hamming.descriptor_distance_matrix(desc1[None], desc2)
     idx2, _ = matching.match_ratio_test(
         dmat, max_descriptor_distance, ratio=ratio,
         valid_a=free1.expand(kps2.shape[0], -1), valid_b=free2,
@@ -133,7 +137,7 @@ def fuse_candidates(pts_w, pt_desc, pt_normal, pt_min_dist, pt_max_dist, pt_vali
     is_stereo = (kp_ur >= 0)[:, None, :]
     chi_ok = torch.where(is_stereo, e2_stereo <= 7.815, e2_mono <= 5.991)
     pair_ok = in_window & level_ok & chi_ok & pt_ok[..., None] & kp_valid[:, None, :]
-    dmat = hamming.hamming_distance_matrix(pt_desc, kp_desc)
+    dmat = hamming.descriptor_distance_matrix(pt_desc, kp_desc)
     dmat = torch.where(pair_ok, dmat, torch.full((), matching.INF, device=dmat.device))
     best_kp = torch.argmin(dmat, -1)
     best_dist = torch.gather(dmat, -1, best_kp[..., None])[..., 0]

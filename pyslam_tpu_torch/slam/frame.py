@@ -2,11 +2,14 @@
 ``pyslam_tpu/slam/frame.py:77-160``, ``:306-321`` and of ``KeyFrame``).
 
 A frame is built from a stereo pair (the fused extraction and row match of
-a rectified camera, or both images extracted apart and matched when the
-camera is distorted), from an image and its depth map (RGBD: virtual right
-coordinates from the sensor depth, ``compute_stereo_from_rgbd``) or from one
-image (monocular).  Keypoints are undistorted once at construction; the
-raw (distorted) ones are kept as ``kps_raw``.
+a rectified camera whose extractor has one, ``extract_stereo``; otherwise
+both images extracted apart and row-matched with the matcher's distance,
+as the reference's ``compute_stereo_matches``), from an image and its depth
+map (RGBD: virtual right coordinates from the sensor depth,
+``compute_stereo_from_rgbd``) or from one image (monocular).  Descriptors
+keep the extractor's layout: int8 bits (256 to 512 of them) or float32.
+Keypoints are undistorted once at construction; the raw (distorted) ones
+are kept as ``kps_raw``.
 
 A frame's extraction stays on the device: ``dev(name)`` returns the device
 tensors (``kps``, ``levels``, ``des``, ``valid``, ``kps_ur``) that the
@@ -73,13 +76,23 @@ class Frame:
         self._dev: dict[str, torch.Tensor] = {}
         self._des_np = None
         if img is None or feature_tracker is None:
+            # no extraction: empty slots in the reference's default layout
+            n = Parameters.kNumFeatures
+            z = np.zeros((n,), np.float32)
+            self._des_np = np.zeros((n, 256), np.int8)
+            minus1 = np.full((n,), -1.0, np.float32)
+            self.set_host_fields(kps=np.zeros((n, 2), np.float32),
+                                 levels=np.zeros((n,), np.int32), angles=z, sizes=z.copy(),
+                                 valid=np.zeros((n,), bool), kps_ur=minus1,
+                                 depths=minus1.copy())
             return
         extractor = feature_tracker.extractor
         max_disp = camera.bf / max(Parameters.kMinDepth, 1e-3) if camera.bf > 0 else 100.0
         stereo_args = dict(bf=camera.bf, max_disp=max_disp,
                            max_distance=Parameters.kStereoMatchingMaxDescriptorDistance,
                            row_tol=Parameters.kStereoMatchingRowTolerance)
-        if img_right is not None and not camera.is_distorted:
+        if (img_right is not None and not camera.is_distorted
+                and hasattr(extractor, "extract_stereo")):
             # fused: both images in one batch, then the row match
             fd, ur, z = extractor.extract_stereo(img, img_right, **stereo_args)
             kps = fd.xy
@@ -88,7 +101,8 @@ class Frame:
             kps = camera.undistort_points(fd.xy)
             if img_right is not None:
                 fr = feature_tracker.detectAndCompute(img_right)
-                ur, z = stereo_match(fd._replace(xy=kps), fr, **stereo_args)
+                ur, z = stereo_match(fd._replace(xy=kps), fr, **stereo_args,
+                                     distance=feature_tracker.matcher.distance_matrix)
             elif depth is not None:
                 ur, z = compute_stereo_from_rgbd(
                     kps, fd.xy, fd.valid, torch.as_tensor(np.asarray(depth)).to(self.device),

@@ -82,7 +82,7 @@ class Initializer:
         ref = self.ref_frame
         dev = self.device
         idx2, _ = matching.match_ratio_test(
-            hamming.hamming_distance_matrix(ref.dev("des"), f.dev("des")),
+            hamming.descriptor_distance_matrix(ref.dev("des"), f.dev("des")),
             Parameters.kMaxDescriptorDistance,
             ratio=Parameters.kInitializerFeatureMatchRatioTest,
             valid_a=ref.dev("valid"), valid_b=f.dev("valid"))

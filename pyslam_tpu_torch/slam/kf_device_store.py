@@ -7,7 +7,8 @@ triangulation and fuse matchers gather their neighbour keyframes from it by
 row, so a back-end call ships only row indices and small masks.  A row is
 written once per keyframe, IN PLACE, from the keyframe's own device
 tensors; the payload is immutable after extraction, so rows never need a
-refresh.
+refresh.  The descriptor block takes the session's layout (dim, dtype):
+int8 bits or float32.
 """
 
 from __future__ import annotations

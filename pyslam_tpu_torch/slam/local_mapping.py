@@ -14,8 +14,12 @@ results polled, never awaited: a CUDA event recorded after each dispatch is
 queried.  On a CUDA device the host slices run under a wall-clock budget
 per frame; on the CPU they are counted (one full job per frame), which keeps
 the keyframe cadence, and through it the result, independent of machine
-load.  The local BA runs in chunks of LM iterations; a keyframe pushed
-while one is in flight aborts it after the current chunk.
+load.  On the CPU the readiness of a dispatched result follows a
+deterministic model of the reference's asynchronous CPU dispatch
+(``Pending``), so that its jobs span frames as the reference's do and a
+keyframe meets the same busy back-end.  The local BA runs in chunks of LM
+iterations; a keyframe pushed while one is in flight aborts it after the
+current chunk.
 """
 
 from __future__ import annotations
@@ -38,19 +42,42 @@ from pyslam_tpu_torch.utils.profiling import StageTimings
 
 
 class Pending:
-    """Device results of a dispatch plus a readiness probe: a CUDA event
-    recorded right after the dispatch (results on the CPU are ready at
-    once)."""
+    """Device results of a dispatch plus a readiness probe: on a CUDA device
+    an event recorded right after the dispatch.
 
-    def __init__(self, value, device: torch.device):
+    On the CPU the work is done by the time the dispatch returns, while the
+    reference's CPU dispatch is asynchronous and polled
+    (``jax.Array.is_ready``), so its back-end jobs span frames.  A
+    deterministic model of it stands in, fitted to the reference's traced
+    polls: a result is ready from the next back-end call on (``advance``,
+    at each ``LocalMapping.step_async``: the next frame's harvest or its
+    end-of-frame step), except that a ``long`` one (the triangulation's
+    epipolar match against every neighbour) is ready only once a frame has
+    been tracked since its dispatch, at an end-of-frame step."""
+
+    _calls = 0    # back-end calls so far
+    _frames = 0   # end-of-frame back-end steps so far
+
+    def __init__(self, value, device: torch.device, long: bool = False):
         self.value = value
         self.event = None
+        self.long = long
+        self.tick = (Pending._calls, Pending._frames)
         if device.type == "cuda":
             self.event = torch.cuda.Event()
             self.event.record(torch.cuda.current_stream(device))
 
+    @classmethod
+    def advance(cls, end_of_frame: bool):
+        cls._calls += 1
+        cls._frames += int(end_of_frame)
+
     def ready(self) -> bool:
-        return self.event is None or self.event.query()
+        if self.event is not None:
+            return self.event.query()
+        if self.long:
+            return Pending._frames > self.tick[1]
+        return Pending._calls > self.tick[0]
 
     def wait(self):
         if self.event is not None:
@@ -95,7 +122,9 @@ class LocalMapping:
         kf0 = kfs[0]
         ks = self._kf_store
         if ks is None:
-            self._kf_store = ks = KFDeviceStore(32, kf0.num_kps, kf0.des.shape[1], self.device)
+            des = kf0.dev("des")
+            self._kf_store = ks = KFDeviceStore(32, kf0.num_kps, des.shape[1], self.device,
+                                                desc_dtype=des.dtype)
         return torch.as_tensor(ks.rows_for(kfs)).to(self.device)
 
     # --------------------------------------------------------------- queue
@@ -126,6 +155,7 @@ class LocalMapping:
         """Advance the back-end once per tracked frame without waiting on
         the device.  The first slice always runs; further slices run while
         under budget (wall clock on CUDA, one full job on the CPU)."""
+        Pending.advance(end_of_frame=start_new_jobs)
         did = False
         t0 = time.perf_counter()
         budget = Parameters.kLocalMappingHostBudgetMs * 1e-3
@@ -326,7 +356,7 @@ class LocalMapping:
             torch.as_tensor(np.stack([n[1] for n in neighbors])).to(dev),
             torch.as_tensor(np.stack([n[2] for n in neighbors])).to(dev),
             self._sigma2, float(Parameters.kMaxDescriptorDistance))
-        return {"pending": Pending(idx2, dev), "neighbors": neighbors}
+        return {"pending": Pending(idx2, dev, long=True), "neighbors": neighbors}
 
     def _tri_harvest(self, kf: KeyFrame, job: dict) -> int:
         idx2_all = job["pending"].value.cpu().numpy()

@@ -47,11 +47,23 @@ class MapPointStorage:
         # 4x growth: each step re-uploads the device store, so take few
         cap = self.capacity * 4
         self._alloc(cap)
+        self.ensure_desc_layout(old["desc"])  # keep the adopted (dim, dtype)
         for name in ("pos", "desc", "normal", "min_dist", "max_dist", "valid",
                      "n_visible", "n_found", "first_kid", "num_obs",
                      "replaced_by"):
             getattr(self, name)[: old["capacity"]] = old[name]
         self.size = old["size"]
+
+    def ensure_desc_layout(self, des: np.ndarray):
+        """Adopt the session's descriptor layout (dim, dtype) on first use:
+        ORB2 stores 256 unpacked bits as int8, BRISK/FREAK/BEBLID 512 and
+        AKAZE 486, SIFT/SURF/KAZE float32 of their own dimension.  The store
+        starts in the ORB2 layout and re-allocates the descriptor block
+        once when the first written descriptors differ (before any point
+        exists)."""
+        dim, dtype = des.shape[1], des.dtype
+        if self.desc.shape[1] != dim or self.desc.dtype != dtype:
+            self.desc = np.zeros((self.capacity, dim), dtype)
 
     def alive_ids(self) -> np.ndarray:
         return np.nonzero(self.valid[: self.size])[0]
@@ -287,6 +299,7 @@ class Map:
         st.pos[pids] = positions
         st.valid[pids] = True
         st.first_kid[pids] = kf.kid
+        st.ensure_desc_layout(kf.des)
         st.desc[pids] = kf.des[kp_idxs]
         self._init_point_geometry(pids, kf, kp_idxs)
         for j, (pid, ki) in enumerate(zip(pids, kp_idxs)):

@@ -202,7 +202,7 @@ class Tracking:
     def track_reference_frame(self, kf: KeyFrame, f_cur: Frame) -> int:
         """Full descriptor match against the reference keyframe, with the
         rotation-consistency filter, propagating its map points."""
-        d = hamming.hamming_distance_matrix(kf.dev("des"), f_cur.dev("des"))
+        d = hamming.descriptor_distance_matrix(kf.dev("des"), f_cur.dev("des"))
         kf_has_point = torch.as_tensor((kf.points >= 0) & kf.valid).to(self.device)
         idx2, _ = matching.match_ratio_test(
             d, Parameters.kMaxDescriptorDistance, ratio=0.7, valid_a=kf_has_point,

@@ -7,6 +7,8 @@ import sys
 
 import pytest
 
+from tests import torch_parity  # noqa: F401  (one small torch thread pool per worker)
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(ROOT, "pyslam_tpu_torch")
 
@@ -19,6 +21,9 @@ def test_import_loads_no_jax():
         "import pyslam_tpu_torch.loop_closing.loop_closing, pyslam_tpu_torch.ops.pnp\n"
         "import pyslam_tpu_torch.ops.lk, pyslam_tpu_torch.ops.epipolar, pyslam_tpu_torch.io.ground_truth\n"
         "import pyslam_tpu_torch.slam.visual_odometry, pyslam_tpu_torch.slam.visual_odometry_rgbd\n"
+        "import pyslam_tpu_torch.features.surf, pyslam_tpu_torch.features.akaze\n"
+        "import pyslam_tpu_torch.features.classical, pyslam_tpu_torch.features.binary_descriptors\n"
+        "import pyslam_tpu_torch.features.matcher, pyslam_tpu_torch.ops.patches\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
         "or m == 'pyslam_tpu' or m.startswith('pyslam_tpu.')]\n"
         "assert not bad, bad\n"
@@ -77,7 +82,12 @@ def test_import_builds_nothing():
                                   "slam.global_bundle_adjustment.build_full_problem",
                                   "slam.global_bundle_adjustment.global_bundle_adjustment",
                                   "slam.initializer.Initializer",
-                                  "slam.visual_odometry_rgbd.VisualOdometryRgbd"])
+                                  "slam.visual_odometry_rgbd.VisualOdometryRgbd",
+                                  "features.surf.SurfExtractor",
+                                  "features.akaze.AkazeExtractor",
+                                  "features.classical.ShiTomasiExtractor",
+                                  "features.classical.CvSIFTExtractor",
+                                  "features.tracker.LkFeatureTracker"])
 def test_entry_points_default_to_the_card(name):
     """The entry points run on the card unless the caller asks for the CPU;
     ``device`` is keyword-only."""
@@ -172,3 +182,79 @@ def test_depth_estimator_upgrade_refused():
     with pytest.raises(NotImplementedError):
         Slam(cam, FeatureTrackerConfig(num_features=300, num_levels=3),
              sensor_type=SensorType.MONOCULAR, depth_estimator=object(), device="cpu")
+
+
+def _presets():
+    from pyslam_tpu_torch.features.tracker import FeatureTrackerConfig, FeatureTrackerConfigs
+
+    return sorted(k for k, v in vars(FeatureTrackerConfigs).items()
+                  if isinstance(v, FeatureTrackerConfig))
+
+
+def _weight_free():
+    from pyslam_tpu_torch.features.tracker import WEIGHT_FREE_PRESETS
+
+    return list(WEIGHT_FREE_PRESETS)
+
+
+@pytest.mark.parametrize("name", _weight_free())
+def test_weight_free_preset_builds(name):
+    """Every preset that needs no learned weights builds on the CPU through
+    the factory, and ``Slam`` takes it and runs three stereo frames (the
+    session's descriptor gates are restored afterwards)."""
+    import numpy as np
+
+    from pyslam_tpu_torch.config_parameters import Parameters
+    from pyslam_tpu_torch.features.tracker import FeatureTrackerConfigs, feature_tracker_factory
+    from pyslam_tpu_torch.io.dataset_types import SensorType
+    from pyslam_tpu_torch.slam.camera import PinholeCamera
+    from pyslam_tpu_torch.slam.slam import Slam
+
+    cfg = FeatureTrackerConfigs.get(name)
+    tracker = feature_tracker_factory(name, device="cpu")
+    assert tracker.device.type == "cpu" and tracker.config is cfg
+    assert (type(tracker).__name__ == "LkFeatureTracker") == (cfg.tracker_type.name == "LK")
+    img = np.tile(np.linspace(20, 200, 160, dtype=np.float32), (120, 1))
+    img[40:80, 50:90] = 240.0
+    fd = tracker.detectAndCompute(img)
+    assert fd.xy.shape == (tracker.num_features, 2) and fd.desc.device.type == "cpu"
+    from pyslam_tpu_torch.io.synthetic import SyntheticDataset
+
+    saved = {k: getattr(Parameters, k) for k in ("kMaxDescriptorDistance",
+                                                 "kMaxOrbDistanceSearchByReproj")}
+    try:
+        # three frames of a small stereo stream: initialisation, then
+        # tracking against the map (projection search at the preset's levels)
+        ds = SyntheticDataset(num_frames=3, h=120, w=160, fx=100.0,
+                              sensor_type=SensorType.STEREO, trajectory="line", step=0.2)
+        cam = PinholeCamera(ds.w, ds.h, ds.fx, ds.fy, ds.cx, ds.cy, bf=ds.fx * ds.baseline,
+                            depth_threshold=20.0)
+        slam = Slam(cam, name, sensor_type=SensorType.STEREO, device="cpu")
+        assert slam.feature_tracker.config.name == name
+        for i in range(3):
+            slam.track(ds.getImage(i), img_right=ds.getImageRight(i), frame_id=i,
+                       timestamp=ds.getTimestamp(i))
+    finally:
+        for k, v in saved.items():
+            setattr(Parameters, k, v)
+
+
+@pytest.mark.parametrize("name", [n for n in _presets() if n not in _weight_free()])
+def test_learned_preset_refused(name):
+    """The learned presets name the slice that brings them."""
+    from pyslam_tpu_torch.features.tracker import feature_tracker_factory
+
+    with pytest.raises(ValueError, match="learned-model slice"):
+        feature_tracker_factory(name, device="cpu")
+
+
+def test_tracker_config_json_round_trip():
+    from pyslam_tpu_torch.features.tracker import FeatureTrackerConfig, FeatureTrackerConfigs
+
+    for name in _presets():
+        cfg = FeatureTrackerConfigs.get(name)
+        back = FeatureTrackerConfig.from_json(cfg.to_json())
+        assert back.to_json() == cfg.to_json()
+    with pytest.raises(KeyError):
+        FeatureTrackerConfigs.get("NO_SUCH_PRESET")
+

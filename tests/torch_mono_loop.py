@@ -2,6 +2,7 @@
 package or in the port.
 
     python -m tests.torch_mono_loop [--package jax|port] [--min-frames-between-kfs N]
+                                    [--frames 175] [--log-kf] [--jax-samples] [--x64]
 
 Runs that test's configuration (175 frames of a 240x320 circle with a
 revisit tail, period 160, 800 ORB2 features on 4 levels, the DBOW3
@@ -12,7 +13,16 @@ correction with the scale of its Sim(3) and the ATE just before and after
 it, and the final ATE.  ``--min-frames-between-kfs`` sets
 ``kNumMinFramesBetweenKfs`` (0, the default, as the reference).  A witness
 for the monocular drift: whether a floor the port misses is missed by the
-reference too.
+reference too.  ``--frames`` stops the run early (the stream keeps its 175
+frames); ``--log-kf`` sets ``kLogKeyFrameDecision`` so that every frame
+prints its ``[kf?]`` line, the witness of the keyframe cadence.
+``--jax-samples`` gives the port's monocular initialiser the reference's
+minimal samples (``tests.torch_parity.JaxKeySampler``, the threefry draws
+of its ``PRNGKey(42)``), so that both packages solve the essential matrix
+from the same sets.  ``--x64`` runs the JAX package with x64 on, as the
+tier-1 suite runs it: its essential-matrix RANSAC then solves in float64
+and initialises the map where the port does (frame 1 of this stream),
+where with x64 off the float32 null vectors delay it to frame 11.
 """
 
 import argparse
@@ -24,11 +34,16 @@ def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--package", choices=("jax", "port"), default="jax")
     ap.add_argument("--min-frames-between-kfs", type=int, default=0)
+    ap.add_argument("--frames", type=int, default=175)
+    ap.add_argument("--log-kf", action="store_true")
+    ap.add_argument("--jax-samples", action="store_true")
+    ap.add_argument("--x64", action="store_true")
     args = ap.parse_args()
     if args.package == "jax":
         import jax
 
         jax.config.update("jax_platforms", "cpu")
+        jax.config.update("jax_enable_x64", args.x64)
         from pyslam_tpu.config_parameters import Parameters
         from pyslam_tpu.evaluation.metrics import eval_ate
         from pyslam_tpu.features.tracker import FeatureTrackerConfig
@@ -47,12 +62,17 @@ def main():
         from pyslam_tpu_torch.slam.slam import Slam
         kw = {"device": "cpu"}
     Parameters.kNumMinFramesBetweenKfs = args.min_frames_between_kfs
+    Parameters.kLogKeyFrameDecision = args.log_kf
     ds = SyntheticDataset(num_frames=175, period=160, sensor_type=SensorType.MONOCULAR,
                           trajectory="loop")
     cam = PinholeCamera(ds.w, ds.h, ds.fx, ds.fy, ds.cx, ds.cy, fps=ds.fps, bf=0.0,
                         depth_threshold=20.0)
     slam = Slam(cam, FeatureTrackerConfig(num_features=800, num_levels=4),
                 loop_detector_config="DBOW3", sensor_type=SensorType.MONOCULAR, **kw)
+    if args.jax_samples and args.package == "port":
+        from tests.torch_parity import JaxKeySampler
+
+        slam.tracking.initializer.sampler = JaxKeySampler(42)
     gt_t = np.array([ds.getTimestamp(i) for i in range(len(ds))])
 
     def ate():
@@ -73,7 +93,7 @@ def main():
               f"-> {after.rmse:.3f} m", flush=True)
 
     lc.correct_loop = correct_loop
-    for i in range(len(ds)):
+    for i in range(min(args.frames, len(ds))):
         n = len(slam.tracking.history.timestamps)
         slam.track(ds.getImage(i), frame_id=i, timestamp=ds.getTimestamp(i))
         if len(slam.tracking.history.timestamps) == n:
@@ -85,7 +105,7 @@ def main():
     slam.finish()
     ts, _ = slam.get_final_trajectory()
     a = ate()
-    print(f"{args.package}: {lc.num_loops_closed} loops closed, {len(ts)}/{len(ds)} tracked, "
+    print(f"{args.package}: {lc.num_loops_closed} loops closed, {len(ts)}/{i + 1} tracked, "
           f"{slam.map.num_keyframes()} keyframes, ATE {a.rmse:.4f} m", flush=True)
 
 
