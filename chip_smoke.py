@@ -92,10 +92,30 @@ Phases (one line each, and any failure exits non-zero):
         the JAX package's (which loses this stream at frame 1).
      Prints p50 / p95 latency, FPS, keyframes and ATE of each session and a
      ``features`` JSON line naming the sessions that ran.
+ 13. the entry point on a sequence from disk: phase 7's 60 stereo frames
+     written as a KITTI odometry sequence (uint8 PNGs, times.txt, the ground
+     truth as poses/00.txt) with an ORB-SLAM settings yaml of the main
+     stage's camera and a config.yaml (ORB2, 2000 features on 8 levels,
+     DBOW3, the main stage's TSDF flags as GLOBAL_PARAMETERS);
+     a. ``pyslam_tpu_torch.main_slam.main`` in this process, on its default
+        device (the card), with --volumetric, --save_state and a KITTI
+        trajectory; asserts every frame tracked (OK after the frame; the
+        final trajectory leaves out a frame whose reference keyframe was
+        culled, as the reference's does), ATE under ENTRY_ATE_MAX against
+        read_kitti_poses, one fast_nms launch a frame, the state folder's
+        files and the table's load factor; prints FPS, p50 / p95 latency,
+        loops closed and the stage totals;
+     b. the state reloaded into a fresh Slam on the card with the TSDF
+        integrator: keyframe and point counts, INIT_RELOCALIZE, the
+        vocabulary checksum and the table's drop share as phase 7 holds
+        it; frames 20-35 of the sequence fed to it must be OK within 5
+        frames and stay OK; then the same map saved in the reference's
+        schema and reloaded into another fresh Slam, with the same counts.
 It ends with a JSON line of kernel results, the card's name and power limit,
 and, last, {"ok": true, "device": {...}}.
 """
 
+import dataclasses
 import json
 import multiprocessing
 import os
@@ -180,6 +200,14 @@ FEATURE_ATE_MAX = 0.25
 KAZE_FRAMES = 20
 KAZE_DESC_TOL = 1e-3
 WITNESS_KAZE = (8, 7)
+# phase 13: main_slam on phase 7's 60 frames written as a KITTI sequence;
+# the ATE floor of tests/test_slam_e2e.py, the main stage's depth threshold,
+# and the frames fed to the reloaded session, which must be OK within
+# ENTRY_RELOC_WITHIN frames and stay OK
+ENTRY_ATE_MAX = 0.25
+ENTRY_DEPTH_THRESHOLD = 35.0
+ENTRY_RELOC_FRAMES = (20, 36)
+ENTRY_RELOC_WITHIN = 5
 
 
 def log(msg):
@@ -459,11 +487,15 @@ def keyframe_drops(vol, est, cam, left, right, Twc, insert=False):
     depth = est.infer_depth_device(left, right)
     inten = torch.as_tensor(np.asarray(left, np.float32), device=dev)
     K = torch.as_tensor(np.asarray(cam.K, np.float32), device=dev)
+    # a volume loaded from a file picks its stride at its first integrate,
+    # as the integrator does
+    stride = vol.stride or int(np.clip(vol.voxel_size * cam.fx / max(vol.depth_trunc, 1e-6),
+                                       1, 4))
     T = torch.as_tensor(np.asarray(Twc, np.float32), device=dev)
     dropped = valid = 0
     for phase in range(TSDF_PHASES):
         upd = depth_to_voxel_updates(depth, inten, T, K, vol.voxel_size, vol.sdf_trunc,
-                                     vol.depth_trunc, vol.stride, vol.band_steps, phase,
+                                     vol.depth_trunc, stride, vol.band_steps, phase,
                                      TSDF_PHASES)
         slot, _ = voxel_hash.claim_slots(vol.table, upd[0], upd[4])
         dropped += int((upd[4] & (slot < 0)).sum())
@@ -1231,6 +1263,199 @@ def features_phase(dev, frames, cam, ds):
     return out
 
 
+def write_kitti_sequence(root, frames, ds):
+    """Phase 7's stereo frames as a KITTI odometry sequence 00 under
+    ``root`` (uint8 PNGs as bench.py's frame cache stores them, times.txt,
+    the ground truth as poses/00.txt), an ORB-SLAM settings yaml with the
+    main stage's camera and a config.yaml naming them; returns the
+    config's path."""
+    import yaml
+    from PIL import Image
+
+    seq = os.path.join(root, "sequences", "00")
+    for sub in ("image_0", "image_1"):
+        os.makedirs(os.path.join(seq, sub), exist_ok=True)
+    os.makedirs(os.path.join(root, "poses"), exist_ok=True)
+    for i, (left, right, _) in enumerate(frames):
+        for sub, img in (("image_0", left), ("image_1", right)):
+            Image.fromarray(np.asarray(img).astype(np.uint8)).save(
+                os.path.join(seq, sub, f"{i:06d}.png"), compress_level=1)
+    np.savetxt(os.path.join(seq, "times.txt"), [ts for _, _, ts in frames], fmt="%.6e")
+    np.savetxt(os.path.join(root, "poses", "00.txt"),
+               ds.poses[:len(frames), :3, :].reshape(len(frames), 12), fmt="%.12e")
+    bf = FX * BASELINE_M
+    settings = {"Camera.fx": FX, "Camera.fy": FX, "Camera.cx": ds.cx, "Camera.cy": ds.cy,
+                "Camera.k1": 0.0, "Camera.k2": 0.0, "Camera.p1": 0.0, "Camera.p2": 0.0,
+                "Camera.k3": 0.0, "Camera.width": W, "Camera.height": H, "Camera.fps": ds.fps,
+                "Camera.bf": bf, "ThDepth": ENTRY_DEPTH_THRESHOLD * FX / bf,
+                "ORBextractor.nFeatures": N_FEATURES, "ORBextractor.scaleFactor": 1.2,
+                "ORBextractor.nLevels": N_LEVELS}
+    with open(os.path.join(root, "settings.yaml"), "w") as f:
+        f.write("%YAML:1.0\n" + yaml.safe_dump(settings))
+    cfg = {"DATASET": {"type": "KITTI"},
+           "KITTI": {"type": "kitti", "base_path": root, "name": "00", "sensor_type": "stereo",
+                     "settings": "settings.yaml", "groundtruth_file": "poses/00.txt",
+                     "FeatureTrackerConfig.name": "ORB2", "LoopDetectionConfig.name": "DBOW3"},
+           # the main stage's dense configuration (bench.py:126-155)
+           "GLOBAL_PARAMETERS": {"kVolumetricIntegrationVoxelSize": VOXEL_SIZE,
+                                 "kVolumetricIntegrationSdfTrunc": SDF_TRUNC,
+                                 "kVolumetricIntegrationDepthTruncOutdoor": DEPTH_TRUNC_OUTDOOR,
+                                 "kVolumetricIntegrationDepthEstimatorType": "sgbm"}}
+    path = os.path.join(root, "config.yaml")
+    with open(path, "w") as f:
+        yaml.safe_dump(cfg, f)
+    return path
+
+
+def entry_phase(dev, frames, ds):
+    """Phase 13: main_slam on a KITTI sequence written to disk, then the
+    saved state reloaded and relocalised in; returns its numbers."""
+    import tempfile
+
+    import torch
+
+    from pyslam_tpu_torch import main_slam
+    from pyslam_tpu_torch.config import Config
+    from pyslam_tpu_torch.config_parameters import Parameters
+    from pyslam_tpu_torch.dense.volumetric_integrator import (
+        VolumetricIntegratorType, volumetric_integrator_factory)
+    from pyslam_tpu_torch.features.tracker import FeatureTrackerConfigs
+    from pyslam_tpu_torch.io.dataset import KittiDataset
+    from pyslam_tpu_torch.io.dataset_types import SensorType
+    from pyslam_tpu_torch.io.ground_truth import read_kitti_poses
+    from pyslam_tpu_torch.ops.fast import fast_nms
+    from pyslam_tpu_torch.slam.slam import Slam
+    from pyslam_tpu_torch.slam.tracking import TrackingState
+
+    saved = Parameters.as_dict()
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_kitti_") as root:
+        t0 = time.perf_counter()
+        cfg_path = write_kitti_sequence(root, frames, ds)
+        log(f"[entry] wrote {len(frames)} stereo frames {H}x{W} as a KITTI sequence in "
+            f"{time.perf_counter() - t0:.1f} s")
+        state = os.path.join(root, "state")
+        traj = os.path.join(root, "trajectory_kitti.txt")
+        # ---- 13a: the entry point on the card (its default device)
+        torch.cuda.synchronize()
+        fast_nms.launches = 0
+        t0 = time.perf_counter()
+        rc = main_slam.main(["--config", cfg_path, "--volumetric", "--save_state", state,
+                             "--save_trajectory", traj, "--trajectory_format", "kitti"])
+        torch.cuda.synchronize()
+        launches = fast_nms.launches
+        t_main = time.perf_counter() - t0
+        with open(os.path.join(state, "other_metrics_info.txt")) as f:
+            metrics = json.load(f)
+        with open(os.path.join(state, "config_info.json")) as f:
+            info = json.load(f)
+        # the KITTI rows carry no timestamps: main_slam's ATE is the
+        # trajectory's against read_kitti_poses of the ground-truth file
+        est = read_kitti_poses(traj)
+        ate = float(metrics["ate_rmse"])
+        n_ok = metrics["num_frames"] - metrics["num_lost"]
+        files = sorted(os.listdir(state))
+        z = np.load(os.path.join(state, "volumetric_state.npz"))
+        load = float(z["occupied"].mean())
+        voc_checksum = str(np.load(os.path.join(state, "loop_closing_state.npz"))["voc_checksum"])
+        log(f"[entry] main_slam --config (KITTI 00, {len(frames)} frames {H}x{W}, ORB2 "
+            f"{N_FEATURES} features on {N_LEVELS} levels, DBOW3, TSDF with SGM depth) on "
+            f"the card: exit {rc} in {t_main:.1f} s; {n_ok}/{metrics['num_frames']} tracked "
+            f"(OK after the frame), {metrics['num_tracked']} in the final trajectory (a frame "
+            f"whose reference keyframe was culled is left out, as in the reference), "
+            f"{metrics['loops_closed']} loops closed, {info['num_keyframes']} keyframes, "
+            f"{info['num_points']} points; {metrics['fps_from_frame_10']:.2f} FPS over frames "
+            f"10-{len(frames) - 1} (incl. final drain), latency p50 "
+            f"{metrics['frame_ms_p50']:.1f} ms p95 {metrics['frame_ms_p95']:.1f} ms; ATE "
+            f"{ate:.4f} m against read_kitti_poses; fast_nms launches {launches}; "
+            f"table load factor {load:.4f}; state files {files}")
+        log("[entry] stage totals: " + json.dumps(
+            {mod: {k: round(v, 1) for k, v in st.items()}
+             for mod, st in metrics["stage_totals_ms"].items()}))
+        assert rc == 0, rc
+        assert n_ok == len(frames), f"{n_ok}/{len(frames)} tracked"
+        assert len(est) == metrics["num_tracked"] and np.isfinite(est.Twc).all(), len(est)
+        assert ate < ENTRY_ATE_MAX, ate
+        assert launches == len(frames), f"{launches} fast_nms launches for {len(frames)} frames"
+        for name in ("map.json", "config_info.json", "loop_closing_state.npz",
+                     "volumetric_state.npz"):
+            assert name in files, (name, files)
+        assert load <= LOAD_MAX, load
+
+        # ---- 13b: a fresh session on the card reloads the state
+        cfg = Config(cfg_path)   # the same camera and dense flags
+        cam = cfg.camera
+        tracker_cfg = dataclasses.replace(FeatureTrackerConfigs.get("ORB2"),
+                                          num_features=N_FEATURES)
+        t0 = time.perf_counter()
+        slam = Slam(cam, tracker_cfg, loop_detector_config="DBOW3",
+                    sensor_type=SensorType.STEREO, device=dev)
+        integ = volumetric_integrator_factory(VolumetricIntegratorType.TSDF, camera=cam,
+                                              environment_type=type("E", (), {"name": "OUTDOOR"})(),
+                                              device=dev)
+        slam.set_volumetric_integrator(integ)
+        slam.load_system_state(state)
+        t_load = time.perf_counter() - t0
+        voc = slam.loop_closing.detector.vocabulary
+        kf = slam.map.last_keyframe()
+        assert slam.map.num_keyframes() == info["num_keyframes"], \
+            (slam.map.num_keyframes(), info)
+        assert slam.map.num_points() == info["num_points"], (slam.map.num_points(), info)
+        assert slam.state == TrackingState.INIT_RELOCALIZE, slam.state
+        assert voc.checksum() == voc_checksum, (voc.checksum(), voc_checksum)
+        assert (slam.map.device.type == "cuda" and kf.dev("des").device.type == "cuda"
+                and voc._dev[0].device.type == "cuda"
+                and integ.volume.table.tsdf.device.type == "cuda")
+        kitti = KittiDataset(root, "00")
+        last = len(frames) - 1
+        dropped, valid = keyframe_drops(integ.volume, integ._depth_provider, cam,
+                                        kitti.getImage(last), kitti.getImageRight(last),
+                                        ds.poses[last])
+        drop = dropped / max(valid, 1)
+        log(f"[entry] reloaded into a fresh Slam on the card in {t_load:.1f} s: "
+            f"{slam.map.num_keyframes()} keyframes, {slam.map.num_points()} points, state "
+            f"{slam.state.name}, vocabulary checksum {voc.checksum()} (saved {voc_checksum}), "
+            f"{integ.volume.num_voxels()} voxels; a keyframe of the last frame would leave "
+            f"{dropped} of its {valid} valid updates ({drop * 100:.3f}%, ceiling "
+            f"{DROP_MAX * 100:.0f}%) dropped")
+        assert drop <= DROP_MAX, drop
+        states = []
+        for i in range(ENTRY_RELOC_FRAMES[0], ENTRY_RELOC_FRAMES[1]):
+            slam.track(kitti.getImage(i), img_right=kitti.getImageRight(i), frame_id=100 + i,
+                       timestamp=10.0 + kitti.getTimestamp(i))
+            states.append(slam.state.name)
+        first_ok = states.index("OK") if "OK" in states else None
+        log(f"[entry] frames {ENTRY_RELOC_FRAMES[0]}-{ENTRY_RELOC_FRAMES[1] - 1} of the "
+            f"sequence fed to the reloaded session: {' '.join(states)}")
+        assert first_ok is not None and first_ok < ENTRY_RELOC_WITHIN, states
+        assert all(st == "OK" for st in states[first_ok:]), states
+        del slam, integ
+        # the same map in the reference's schema, through two fresh sessions
+        ref_state = os.path.join(root, "state_reference")
+        slam = Slam(cam, tracker_cfg, loop_detector_config="DBOW3",
+                    sensor_type=SensorType.STEREO, device=dev)
+        slam.load_system_state(state)
+        slam.save_system_state(ref_state, schema="reference")
+        slam = Slam(cam, tracker_cfg, loop_detector_config="DBOW3",
+                    sensor_type=SensorType.STEREO, device=dev)
+        slam.load_system_state(ref_state)
+        log(f"[entry] reference schema: {slam.map.num_keyframes()} keyframes, "
+            f"{slam.map.num_points()} points after a save and a reload")
+        assert slam.map.num_keyframes() == info["num_keyframes"], slam.map.num_keyframes()
+        assert slam.map.num_points() == info["num_points"], slam.map.num_points()
+        assert slam.map.device.type == "cuda"
+        del slam
+        out = {"launches": launches, "n_tracked": n_ok, "trajectory_rows": len(est), "ate": ate,
+               "loops_closed": metrics["loops_closed"], "fps": metrics["fps_from_frame_10"],
+               "p50_ms": metrics["frame_ms_p50"], "p95_ms": metrics["frame_ms_p95"],
+               "keyframes": info["num_keyframes"], "points": info["num_points"],
+               "load_factor": load, "drop_share": drop, "reloc_states": states,
+               "main_s": t_main, "load_s": t_load}
+    Parameters.set_from_dict(saved)
+    torch.cuda.empty_cache()
+    return out
+
+
 def main():
     import torch
 
@@ -1510,6 +1735,10 @@ def main():
     feats = features_phase(dev, frames, cam, ds)
     print(json.dumps({"features": feats}, default=float), flush=True)
 
+    # ---------------------------------------------------------------- 13
+    entry = entry_phase(dev, frames, ds)
+    print(json.dumps({"entry": entry}, default=float), flush=True)
+
     print(json.dumps({"kernels": [{
         "name": "fast_nms", "route": "cuda",
         "source": "pyslam_tpu_torch/csrc/fast_nms.cu",
@@ -1519,6 +1748,7 @@ def main():
         "launches_rgbd_stage": rgbd["launches"], "launches_mono_stage": mono["launches"],
         "launches_vo_mono": vo["mono"]["launches"], "launches_vo_rgbd": vo["rgbd"]["launches"],
         "launches_beblid_stage": feats["ORB2_BEBLID"]["launches"],
+        "launches_entry_stage": entry["launches"],
         "mono_frame": one["b1_pyramid"], "vo_rgbd_level_th15": one["vo_level_th15"],
         "max_abs_err": max_err, "ms": kern_ms, "plain_ms": plain_ms,
         "bound_ms": work["bound_ms"], "bound_by": work["bound_by"], "library_ms": None,

@@ -147,3 +147,16 @@ class Parameters:
 
     # ------------------------------------------------------------- storage
     kMapPointCapacityInitial = 1 << 15      # initial SoA map-point capacity
+
+    @classmethod
+    def set_from_dict(cls, d: dict) -> None:
+        """Override flags from a dict (the yaml GLOBAL_PARAMETERS hook); an
+        unknown flag raises KeyError."""
+        for k, v in d.items():
+            if not hasattr(cls, k):
+                raise KeyError(f"unknown Parameters flag: {k}")
+            setattr(cls, k, v)
+
+    @classmethod
+    def as_dict(cls) -> dict:
+        return {k: v for k, v in vars(cls).items() if k.startswith("k") and not callable(v)}

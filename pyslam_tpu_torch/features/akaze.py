@@ -172,6 +172,14 @@ class AkazeExtractor:
         self.inv_sigma2 = 1.0 / self.sigma2
         self._grids = [(_mldb_pairs(g * g), g) for g in (2, 3, 4)]
 
+    @property
+    def desc_bits(self) -> int | None:
+        """Bits of an M-LDB descriptor: 3 channels over the cell pairs of the
+        2x2, 3x3 and 4x4 grids (486); None for the float KAZE descriptor."""
+        if self.descriptor != "MLDB":
+            return None
+        return sum(3 * len(iu) for (iu, _), _ in self._grids)
+
     # ------------------------------------------------------------ octave
     def _octave(self, img01: torch.Tensor, n: int):
         """Detect and describe on one octave; octave-local results."""

@@ -3,7 +3,8 @@ rendered along a parametric camera trajectory with exact ground truth.
 
 Copied from ``SyntheticWorld`` and ``SyntheticDataset`` of
 ``pyslam_tpu/io/dataset.py``: the port renders byte-identical frames from the
-same seed, so both packages can be driven with the same input.
+same seed, so both packages can be driven with the same input.  Both
+classes are importable from ``io/dataset.py`` too, beside the loaders.
 """
 
 from __future__ import annotations
@@ -12,30 +13,8 @@ from dataclasses import dataclass, field
 
 import numpy as np
 
+from pyslam_tpu_torch.io.dataset import DatasetBase
 from pyslam_tpu_torch.io.dataset_types import SensorType
-
-
-class DatasetBase:
-    """Iteration surface shared by the datasets (``getImage(i)`` ...)."""
-
-    sensor_type = SensorType.MONOCULAR
-    num_frames = 0
-    fps = 30.0
-
-    def getImage(self, i: int) -> np.ndarray | None:
-        raise NotImplementedError
-
-    def getImageRight(self, i: int) -> np.ndarray | None:
-        return None
-
-    def getDepth(self, i: int) -> np.ndarray | None:
-        return None
-
-    def getTimestamp(self, i: int) -> float:
-        return i / self.fps
-
-    def __len__(self) -> int:
-        return self.num_frames
 
 
 @dataclass

@@ -16,12 +16,13 @@ reference departs from them: ``_essential_graph_pgo``), and a global BA is
 dispatched to run asynchronously.
 
 Host bookkeeping is numpy; the matching, RANSAC, LM, pose graph and BA run
-on the device.  The learned and VLAD/SAD detectors and the serialisation of
-the loop-closing state are not ported yet.
+on the device.  ``save``/``load`` carry the DB and the vocabulary with the
+system state.  The learned and VLAD/SAD detectors are not ported yet.
 """
 
 from __future__ import annotations
 
+import os
 from collections import deque
 
 import numpy as np
@@ -169,6 +170,92 @@ class LoopClosing:
         self.num_loops_closed = 0
         self.gba._state = None          # discard a solve in flight
         self.gba.abort_flag = False
+
+    def save(self, path: str):
+        """Write the loop-closing DB to ``path``: ``loop_closing_state.npz``
+        (inverted index, per-keypoint words, global descriptors, counters;
+        a flat codebook's words inline) and, for a tree vocabulary,
+        ``loop_vocabulary.npz`` with its checksum in the state.  The JAX
+        package's layout: either package loads the other's."""
+        db = self.db
+        kids = np.asarray(sorted(db.kf_gdes.keys()), np.int64)
+        gdes = (np.stack([db.kf_gdes[int(k)] for k in kids]) if len(kids)
+                else np.zeros((0, 0), np.float32))
+        words_flat = (np.concatenate([db.kf_words[int(k)] for k in kids]) if len(kids)
+                      else np.zeros((0,), np.int64))
+        offsets = np.cumsum([0] + [len(db.kf_words[int(k)]) for k in kids]).astype(np.int64)
+        empty = np.zeros((0,), np.int64)
+        kp_lists = [db.kf_kp_words.get(int(k), empty) for k in kids]
+        kp_flat = np.concatenate(kp_lists) if len(kids) else empty
+        kp_offsets = np.cumsum([0] + [len(a) for a in kp_lists]).astype(np.int64)
+        state = {
+            "kids": kids,
+            "gdes": gdes,
+            "words_flat": words_flat,
+            "word_offsets": offsets,
+            "kp_words_flat": kp_flat,          # direct index (per-keypoint words)
+            "kp_word_offsets": kp_offsets,
+            "last_loop_kf_id": self.last_loop_kf_id,
+            "num_loops_closed": self.num_loops_closed,
+        }
+        voc = self.detector.vocabulary
+        if voc.seeded:
+            if isinstance(voc, HierarchicalVocabulary):
+                voc.save(os.path.join(path, "loop_vocabulary.npz"))
+                state["voc_checksum"] = voc.checksum()
+            else:
+                state.update(voc_words_bits=voc.words_bits, voc_doc_count=voc.doc_count,
+                             voc_word_doc_count=voc.word_doc_count)
+        np.savez_compressed(os.path.join(path, "loop_closing_state.npz"), **state)
+
+    def load(self, path: str) -> bool:
+        """Restore the DB that ``save`` wrote (not rebuilt: the word
+        assignments stay those of the saved vocabulary), the vocabulary on
+        this session's device.  False when there is no state file, or when
+        the saved tree's checksum does not match its file."""
+        fp = os.path.join(path, "loop_closing_state.npz")
+        if not os.path.exists(fp):
+            return False
+        z = np.load(fp)
+        self.reset()
+        voc = self.detector.vocabulary
+        voc_fp = os.path.join(path, "loop_vocabulary.npz")
+        if os.path.exists(voc_fp):
+            loaded = HierarchicalVocabulary.load(voc_fp, device=self.device)
+            if "voc_checksum" in z and loaded.checksum() != str(z["voc_checksum"]):
+                Printer.red("loop DB vocabulary checksum mismatch: stored word "
+                            "assignments are inconsistent — rebuilding DB instead")
+                return False
+            self.detector.vocabulary = loaded
+            self.detector._trained = True
+        elif "voc_words_bits" in z:
+            voc.words_bits = z["voc_words_bits"]
+            voc._upload()
+            voc.seeded = True
+            voc.doc_count = int(z["voc_doc_count"])
+            voc.word_doc_count = z["voc_word_doc_count"]
+            self.detector._trained = True
+        kids = z["kids"]
+        gdes = z["gdes"]
+        offs = z["word_offsets"]
+        flat = z["words_flat"]
+        kp_offs = z["kp_word_offsets"] if "kp_word_offsets" in z else None
+        kp_flat = z["kp_words_flat"] if "kp_words_flat" in z else None
+        for i, kid in enumerate(kids):
+            # the full per-keypoint words (direct index) where saved, else
+            # the unique word sets of an older save
+            words = None
+            if kp_offs is not None:
+                kp = kp_flat[kp_offs[i]:kp_offs[i + 1]]
+                if len(kp):
+                    words = kp
+            if words is None:
+                w = flat[offs[i]:offs[i + 1]]
+                words = w if len(w) else None
+            self.db.add(int(kid), words, gdes[i])
+        self.last_loop_kf_id = int(z["last_loop_kf_id"])
+        self.num_loops_closed = int(z["num_loops_closed"])
+        return True
 
     def add_keyframe(self, kf: KeyFrame):
         self.queue.append(kf)

@@ -13,11 +13,14 @@ distance matrix and argmin, the k-ary tree as ``depth`` rounds of an L1
 distance to the current node's children in float32 and an argmin that
 keeps the first index.  A float centroid sums its members in row order, as
 the reference's scatter-add does, on the CPU and the card alike
-(``_ordered_segment_sum``).  The pretrained DBoW3 import and the ``.npz``
-serialisation come with the serialisation slice.
+(``_ordered_segment_sum``).  Both vocabularies save to and load from the
+JAX package's ``.npz`` layout; a tree's ``checksum`` is the JAX package's.
+The pretrained DBoW3 import is not ported (ROADMAP.md item 4).
 """
 
 from __future__ import annotations
+
+import hashlib
 
 import numpy as np
 import torch
@@ -177,6 +180,23 @@ class BinaryVocabulary(_DocumentStats):
         valid = torch.as_tensor(_host(valid)).to(self.device)
         return quantize(_device_desc(desc_bits, self.device), self._words_dev,
                         valid).cpu().numpy()
+
+    def save(self, path: str):
+        np.savez_compressed(path, words_bits=self.words_bits, doc_count=self.doc_count,
+                            word_doc_count=self.word_doc_count)
+
+    @staticmethod
+    def load(path: str, *, device: torch.device | str = "cuda") -> "BinaryVocabulary":
+        """A seeded codebook on ``device`` from ``save``'s file (either
+        package's)."""
+        z = np.load(path)
+        v = BinaryVocabulary(num_words=z["words_bits"].shape[0], device=device)
+        v.words_bits = z["words_bits"]
+        v._upload()
+        v.seeded = True
+        v.doc_count = int(z["doc_count"])
+        v.word_doc_count = z["word_doc_count"]
+        return v
 
 
 def quantize_tree(desc: torch.Tensor, valid: torch.Tensor, centroids: torch.Tensor,
@@ -350,3 +370,37 @@ class HierarchicalVocabulary(_DocumentStats):
         ok = words >= 0
         out[ok] = self.word_level_node[words[ok], level]
         return out
+
+    def checksum(self) -> str:
+        """First 16 hex digits of the SHA-1 of the centroids' and the
+        children's bytes (the JAX package's, for the same tree)."""
+        h = hashlib.sha1()
+        h.update(np.ascontiguousarray(self.centroids).tobytes())
+        h.update(np.ascontiguousarray(self.children).tobytes())
+        return h.hexdigest()[:16]
+
+    def save(self, path: str):
+        np.savez_compressed(
+            path, hier_k=self.k, hier_depth=self.depth, centroids=self.centroids,
+            children=self.children, node_word=self.node_word,
+            word_weights=(self.word_weights if self.word_weights is not None
+                          else np.zeros(0, np.float32)),
+            doc_count=self.doc_count, word_doc_count=self.word_doc_count)
+
+    @staticmethod
+    def load(path: str, *, device: torch.device | str = "cuda") -> "HierarchicalVocabulary":
+        """A trained tree on ``device`` from ``save``'s file (either
+        package's)."""
+        z = np.load(path)
+        v = HierarchicalVocabulary(branching=int(z["hier_k"]), depth=int(z["hier_depth"]),
+                                   device=device)
+        v.centroids = z["centroids"]
+        v.children = z["children"]
+        v.node_word = z["node_word"]
+        v.num_words = int((v.node_word >= 0).sum())
+        ww = z["word_weights"]
+        v.word_weights = ww if len(ww) else None
+        v.doc_count = int(z["doc_count"])
+        v.word_doc_count = z["word_doc_count"]
+        v._finalize()
+        return v

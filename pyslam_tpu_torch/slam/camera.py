@@ -106,3 +106,27 @@ class PinholeCamera(Camera):
         x = (uv[..., 0] - self.cx) / self.fx
         y = (uv[..., 1] - self.cy) / self.fy
         return np.stack([x * depth, y * depth, depth], axis=-1)
+
+    def to_json(self):
+        return {
+            "width": self.width,
+            "height": self.height,
+            "fx": self.fx,
+            "fy": self.fy,
+            "cx": self.cx,
+            "cy": self.cy,
+            "D": self.D.tolist(),
+            "fps": self.fps,
+            "bf": self.bf,
+            "depth_factor": self.depth_factor,
+            "depth_threshold": float(self.depth_threshold),
+        }
+
+    @staticmethod
+    def from_json(d: dict) -> "PinholeCamera":
+        return PinholeCamera(
+            d["width"], d["height"], d["fx"], d["fy"], d["cx"], d["cy"],
+            D=d.get("D"), fps=d.get("fps", 30.0), bf=d.get("bf", 0.0),
+            depth_factor=d.get("depth_factor", 1.0),
+            depth_threshold=d.get("depth_threshold"),
+        )

@@ -93,6 +93,8 @@ class Map:
         self._dirty_overflow = True          # True => full upload needed
         # observations: pid -> {kid: kp_idx}
         self.observations: dict[int, dict[int, int]] = {}
+        self.max_frame_id = 0
+        self.max_keyframe_id = 0
         # per-map kid counter: keyframe ids must be sequential WITHIN a map
         # (kid deltas drive freshness/culling logic), so assignment lives
         # here, not on a process-global class attribute
@@ -179,6 +181,7 @@ class Map:
         self.next_kid = max(self.next_kid, kf.kid + 1)
         self.keyframes[kf.kid] = kf
         self.keyframe_order.append(kf.kid)
+        self.max_keyframe_id = max(self.max_keyframe_id, kf.kid)
 
     def remove_keyframe(self, kf: KeyFrame):
         """Cull a keyframe: drop its observations, fix spanning tree."""

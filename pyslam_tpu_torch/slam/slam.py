@@ -1,21 +1,30 @@
 """Slam facade: the main user-facing class (port of
-``pyslam_tpu/slam/slam.py:37-229``, ``:336-347``).
+``pyslam_tpu/slam/slam.py``).
 
 ``Slam(camera, feature_tracker_config, sensor_type=STEREO | RGBD |
 MONOCULAR, device=...)`` with ``track()``, ``finish()``,
-``get_final_trajectory()``, ``timings()`` and
-``set_volumetric_integrator()``.  The host drives everything in one
-thread: ``track()`` harvests finished back-end work, tracks the frame,
-snapshots a new keyframe's images (and an RGBD keyframe's sensor depth, so
-the integrator takes it instead of estimating one) for the volumetric
-integrator, advances local mapping by a bounded slice, services loop
-closing (one keyframe's detection, or a poll of the asynchronous GBA) and
-issues one integrator stage; the device queue gives the overlap.  The
+``get_final_trajectory()``, ``get_keyframe_trajectory()``,
+``bundle_adjust()``, ``timings()``, ``timings_summary()``,
+``set_volumetric_integrator()``, ``reset()`` and the system state's
+``save_system_state()`` / ``load_system_state()`` (``map.json`` in the
+native or the reference's schema, ``config_info.json``, the loop-closing
+DB and the volumetric state).  A loaded map lives on the session's
+device, and the session relocalises in it (``INIT_RELOCALIZE``).  The host
+drives everything in one thread: ``track()`` harvests finished back-end
+work, tracks the frame, snapshots a new keyframe's images (and an RGBD
+keyframe's sensor depth, so the integrator takes it instead of estimating
+one) for the volumetric integrator, advances local mapping by a bounded
+slice, services loop closing (one keyframe's detection, or a poll of the
+asynchronous GBA) and issues one integrator stage; the device queue gives
+the overlap.  The
 reference's ``depth_estimator=`` upgrade of a monocular stream to RGBD
 needs the learned estimators, which are not ported.
 """
 
 from __future__ import annotations
+
+import json
+import os
 
 import numpy as np
 import torch
@@ -27,8 +36,15 @@ from pyslam_tpu_torch.io.dataset_types import SensorType
 from pyslam_tpu_torch.loop_closing.loop_closing import LoopClosing
 from pyslam_tpu_torch.slam.camera import PinholeCamera
 from pyslam_tpu_torch.slam.frame import Frame
+from pyslam_tpu_torch.slam.global_bundle_adjustment import global_bundle_adjustment
 from pyslam_tpu_torch.slam.local_mapping import LocalMapping
 from pyslam_tpu_torch.slam.map import Map
+from pyslam_tpu_torch.slam.map_serialization import map_from_json, map_to_json
+from pyslam_tpu_torch.slam.map_serialization_ref import (
+    is_reference_schema,
+    map_from_reference_json,
+    map_to_reference_json,
+)
 from pyslam_tpu_torch.slam.tracking import Tracking, TrackingState
 from pyslam_tpu_torch.utils.device import same_device
 from pyslam_tpu_torch.utils.logging import Printer
@@ -45,6 +61,9 @@ class Slam:
         self.camera = camera
         self.sensor_type = sensor_type
         self.device = torch.device(device)
+        self.feature_tracker_config = (feature_tracker_config
+                                       if isinstance(feature_tracker_config, FeatureTrackerConfig)
+                                       else None)
         self.feature_tracker = feature_tracker_factory(feature_tracker_config,
                                                        device=self.device)
         # session descriptor gates from the descriptor's acceptance distance
@@ -139,6 +158,10 @@ class Slam:
         if self.volumetric_integrator is not None:
             self.volumetric_integrator.run_all()
 
+    @property
+    def state(self) -> TrackingState:
+        return self.tracking.state
+
     def timings(self) -> dict:
         out = {"tracking": self.tracking.timings.report(),
                "local_mapping": self.local_mapping.timings.report()}
@@ -149,6 +172,15 @@ class Slam:
             out["volumetric_integrator"] = self.volumetric_integrator.timings.report()
         return out
 
+    def timings_summary(self) -> str:
+        """One line a module: each stage's mean over all its calls times its
+        call count (a windowed mean hides how often a stage ran)."""
+        return "\n".join(
+            f"[{mod}] " + " ".join(
+                f"{k}={v['total_ms'] / max(v['calls'], 1):.1f}ms*{v['calls']}"
+                for k, v in sorted(st.items()))
+            for mod, st in self.timings().items() if st)
+
     def set_volumetric_integrator(self, integrator):
         """Attach a dense integrator: local mapping hands it each finished
         keyframe, and ``track()`` advances it one stage a frame.  It must
@@ -158,23 +190,30 @@ class Slam:
         self.volumetric_integrator = integrator
         self.local_mapping.volumetric_integrator = integrator
 
-    def reset(self):
-        self.tracking.reset_requested = False
+    def _adopt_map(self, new_map: Map):
+        """Point every module at ``new_map`` and drop the work queued for
+        the old one: the prefetched frame, local mapping's queue, jobs and
+        keyframe device store."""
         self._prefetched = None
         self._last_input = None
-        self.map = Map(device=self.device)
+        self.map = new_map
         lm = self.local_mapping
-        lm.map = self.map
+        lm.map = new_map
         lm.queue.clear()
         lm._job = lm._tri_job = lm._fuse_job = lm._lba = None
         lm._kf_store = None
         lm.opt_abort_flag = False
-        self.tracking.map = self.map
+        self.tracking.map = new_map
+        if self.loop_closing is not None:
+            self.loop_closing.map = new_map
+
+    def reset(self):
+        self.tracking.reset_requested = False
+        self._adopt_map(Map(device=self.device))
         self.tracking.state = TrackingState.NO_IMAGES_YET
         self.tracking.initializer.reset()
         self.tracking.motion_model.reset()
         if self.loop_closing is not None:
-            self.loop_closing.map = self.map
             self.loop_closing.reset()
         if self.volumetric_integrator is not None:
             self.volumetric_integrator.reset()
@@ -183,3 +222,93 @@ class Slam:
         """(timestamps, Twc poses) re-anchored to the optimised keyframes."""
         self.finish()
         return self.tracking.history.final_trajectory(self.map)
+
+    def get_keyframe_trajectory(self):
+        """(timestamps, Twc poses) of the keyframes, in insertion order."""
+        ts, poses = [], []
+        for kid in self.map.keyframe_order:
+            kf = self.map.keyframes[kid]
+            ts.append(kf.timestamp)
+            poses.append(kf.Twc)
+        return np.asarray(ts), np.asarray(poses)
+
+    def bundle_adjust(self, iters: int = 15) -> float:
+        """Full-map global BA on the session's device; returns its cost."""
+        self.finish()
+        return global_bundle_adjustment(self.map, self.camera, self.feature_tracker,
+                                        iters=iters, device=self.device)
+
+    # ------------------------------------------------------- state save/load
+    def save_system_state(self, path: str, schema: str = "native"):
+        """Write the system state to the folder ``path``: ``map.json``
+        (``schema="native"``: the compact b64 schema; ``"reference"``: the
+        reference's cross-core schema), ``config_info.json``, the
+        loop-closing DB and ``volumetric_state.npz`` (the JAX package's
+        layout: either package loads the other's)."""
+        self.finish()
+        os.makedirs(path, exist_ok=True)
+        if schema == "reference":
+            d = map_to_reference_json(self.map, self.camera, sensor_type=self.sensor_type,
+                                      feature_tracker_config=self.feature_tracker_config)
+        elif schema == "native":
+            d = map_to_json(self.map)
+            d["camera"] = self.camera.to_json()
+            d["sensor_type"] = self.sensor_type.name
+            if self.feature_tracker_config is not None:
+                d["feature_tracker_config"] = self.feature_tracker_config.to_json()
+        else:
+            raise ValueError(f"unknown map schema {schema!r}")
+        with open(os.path.join(path, "map.json"), "w") as f:
+            json.dump(d, f)
+        with open(os.path.join(path, "config_info.json"), "w") as f:
+            json.dump({"sensor_type": self.sensor_type.name,
+                       "num_keyframes": self.map.num_keyframes(),
+                       "num_points": self.map.num_points()}, f, indent=2)
+        if self.loop_closing is not None:
+            self.loop_closing.save(path)
+        if self.volumetric_integrator is not None:
+            self.volumetric_integrator.save(os.path.join(path, "volumetric_state.npz"))
+        Printer.green(f"saved system state to {path}")
+
+    def load_system_state(self, path: str):
+        """Replace the session's map by the one saved in ``path`` (either
+        schema, either package), with its loop-closing DB and volumetric
+        state where saved; the session then relocalises in it
+        (``INIT_RELOCALIZE``, the reference keyframe the map's last)."""
+        with open(os.path.join(path, "map.json")) as f:
+            d = json.load(f)
+        if d.get("format", "").startswith("pyslam_tpu_map"):
+            new_map = map_from_json(d, self.feature_tracker, self.camera)
+        elif is_reference_schema(d):
+            new_map = map_from_reference_json(d, self.feature_tracker, self.camera)
+        else:
+            raise ValueError(f"unrecognized map.json schema in {path}")
+        self._adopt_map(new_map)
+        if self.loop_closing is not None:
+            if self.loop_closing.load(path):
+                Printer.green("loop-closing DB restored from saved state")
+            else:
+                # a save without the DB: keyframes are described again as
+                # they are revisited
+                self.loop_closing.reset()
+        vi = self.volumetric_integrator
+        vol_path = os.path.join(path, "volumetric_state.npz")
+        if vi is not None and os.path.exists(vol_path):
+            vi.load(vol_path)
+        self.tracking.state = TrackingState.INIT_RELOCALIZE
+        self.tracking.kf_ref = self.map.last_keyframe()
+        self._check_devices()
+        Printer.green(f"loaded system state from {path}: {self.map.num_keyframes()} KFs, "
+                      f"{self.map.num_points()} points")
+
+    def _check_devices(self):
+        """Refuse a loaded state that left a part off the session's device."""
+        parts = [("map", self.map.device)]
+        parts += [(f"keyframe {kid}", kf.device) for kid, kf in self.map.keyframes.items()]
+        if self.loop_closing is not None:
+            parts.append(("vocabulary", self.loop_closing.detector.vocabulary.device))
+        if self.volumetric_integrator is not None:
+            parts.append(("volume", self.volumetric_integrator.volume.table.tsdf.device))
+        bad = [(name, str(dev)) for name, dev in parts if not same_device(dev, self.device)]
+        if bad:
+            raise RuntimeError(f"loaded state off the session's device {self.device}: {bad[:5]}")

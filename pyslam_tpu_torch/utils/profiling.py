@@ -1,12 +1,16 @@
-"""Per-stage timing: named moving-average stage timers.
+"""Per-stage timing: named moving-average stage timers, and a device trace.
 
-Copied from ``pyslam_tpu/utils/profiling.py`` (``StageTimings`` only; the
-device dispatch/readback counters and the JAX trace helpers are not ported).
+Copied from ``pyslam_tpu/utils/profiling.py`` (``StageTimings``; the device
+dispatch/readback counters are not ported).  ``device_trace`` is the
+counterpart of the JAX package's ``jax.profiler`` trace: a
+``torch.profiler`` trace of the host and, where a card is present, its
+kernels.
 """
 
 from __future__ import annotations
 
 import contextlib
+import os
 
 from pyslam_tpu_torch.utils.timer import TimerFps
 
@@ -63,3 +67,23 @@ class StageTimings:
         ]
         prefix = f"[{self.name}] " if self.name else ""
         return prefix + " ".join(parts)
+
+
+@contextlib.contextmanager
+def device_trace(logdir: str):
+    """Capture a ``torch.profiler`` trace into ``logdir/trace.json``
+    (Chrome / Perfetto viewable): host operators always, the card's kernels
+    when CUDA is available.
+
+    Usage: ``with device_trace('logs/trace'): ... run frames ...``
+    """
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(logdir, exist_ok=True)
+    with profile(activities=activities) as prof:
+        yield prof
+    prof.export_chrome_trace(os.path.join(logdir, "trace.json"))

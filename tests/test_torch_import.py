@@ -24,6 +24,12 @@ def test_import_loads_no_jax():
         "import pyslam_tpu_torch.features.surf, pyslam_tpu_torch.features.akaze\n"
         "import pyslam_tpu_torch.features.classical, pyslam_tpu_torch.features.binary_descriptors\n"
         "import pyslam_tpu_torch.features.matcher, pyslam_tpu_torch.ops.patches\n"
+        "import pyslam_tpu_torch.io.dataset, pyslam_tpu_torch.io.dataset_factory\n"
+        "import pyslam_tpu_torch.io.trajectory_writer, pyslam_tpu_torch.config\n"
+        "import pyslam_tpu_torch.evaluation.manager, pyslam_tpu_torch.evaluation.report_formats\n"
+        "import pyslam_tpu_torch.slam.map_serialization, pyslam_tpu_torch.slam.map_serialization_ref\n"
+        "import pyslam_tpu_torch.main_slam, pyslam_tpu_torch.main_vo\n"
+        "import pyslam_tpu_torch.main_slam_evaluation\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
         "or m == 'pyslam_tpu' or m.startswith('pyslam_tpu.')]\n"
         "assert not bad, bad\n"
@@ -87,15 +93,25 @@ def test_import_builds_nothing():
                                   "features.akaze.AkazeExtractor",
                                   "features.classical.ShiTomasiExtractor",
                                   "features.classical.CvSIFTExtractor",
-                                  "features.tracker.LkFeatureTracker"])
+                                  "features.tracker.LkFeatureTracker",
+                                  "evaluation.manager.SlamEvaluationManager",
+                                  "loop_closing.vocabulary.HierarchicalVocabulary.load",
+                                  "loop_closing.vocabulary.BinaryVocabulary.load"])
 def test_entry_points_default_to_the_card(name):
     """The entry points run on the card unless the caller asks for the CPU;
     ``device`` is keyword-only."""
     import importlib
     import inspect
 
-    mod, attr = name.rsplit(".", 1)
-    obj = getattr(importlib.import_module(f"pyslam_tpu_torch.{mod}"), attr)
+    parts = name.split(".")
+    for i in range(len(parts) - 1, 0, -1):   # the longest prefix that is a module
+        try:
+            obj = importlib.import_module("pyslam_tpu_torch." + ".".join(parts[:i]))
+            break
+        except ModuleNotFoundError:
+            continue
+    for attr in parts[i:]:
+        obj = getattr(obj, attr)
     param = inspect.signature(obj).parameters["device"]
     assert param.default == "cuda"
     assert param.kind is inspect.Parameter.KEYWORD_ONLY

@@ -1,7 +1,8 @@
-"""One phase of chip_smoke.py on the card, alone: 8 (bench.py's loop stage)
-or 12 (the weight-free feature presets).
+"""One phase of chip_smoke.py on the card, alone: 8 (bench.py's loop stage),
+12 (the weight-free feature presets) or 13 (main_slam on a KITTI sequence
+written to disk, then the saved state reloaded).
 
-    PYTHONPATH=. python3 tests/torch_chip_phase.py 8|12
+    PYTHONPATH=. python3 tests/torch_chip_phase.py 8|12|13
 
 Builds the kernels, renders the phase's frames as chip_smoke.py does and
 runs its function for the phase; prints what the phase prints.  Run from
@@ -34,6 +35,11 @@ def main():
     if phase == 8:
         frames = cs.render(cs.render_loop_frames, cs.LOOP_FRAMES)
         cs.loop_phase(dev, (ds.w, ds.h, ds.fx, ds.fy, ds.cx, ds.cy), frames)
+    elif phase == 13:
+        frames = [(ds.getImage(i), ds.getImageRight(i), ds.getTimestamp(i))
+                  for i in range(cs.N_FRAMES)]
+        t0 = time.time()
+        print(json.dumps({"entry": cs.entry_phase(dev, frames, ds)}, default=float), flush=True)
     elif phase == 12:
         cam = PinholeCamera(ds.w, ds.h, ds.fx, ds.fy, ds.cx, ds.cy, fps=ds.fps,
                             bf=ds.fx * ds.baseline, depth_threshold=35.0)
@@ -43,7 +49,7 @@ def main():
         print(json.dumps({"features": cs.features_phase(dev, frames, cam, ds)}, default=float),
               flush=True)
     else:
-        raise SystemExit(f"phase {phase}: only 8 and 12 run alone")
+        raise SystemExit(f"phase {phase}: only 8, 12 and 13 run alone")
     print(f"phase {phase}: {time.time() - t0:.1f} s", flush=True)
 
 
