@@ -111,6 +111,27 @@ Phases (one line each, and any failure exits non-zero):
         it; frames 20-35 of the sequence fed to it must be OK within 5
         frames and stay OK; then the same map saved in the reference's
         schema and reloaded into another fresh Slam, with the same counts.
+ 14. the learned models with the JAX package's bundled weights (each asserts
+     ``trained``):
+     a. SuperPoint card against CPU on frames 0-1 of phase 7's stream (the
+        probability map within SP_TOL, 99 % of the keypoint slots identical
+        and the others at responses within SP_TOL, descriptors within
+        SP_TOL); its forward time on one 376x1240 image (CUDA events), the
+        FLOPs of its convolutions from the layer shapes and their share of
+        the float32 peak; then a SUPERPOINT + DBOW3_INDEPENDENT stereo
+        session on phase 7's 60 frames (1000 keypoints), no integrator, its
+        frames tracked held to the JAX package's (WITNESS_SP);
+     b. VisualOdometry with the LIGHTGLUE preset on phase 11's frames: FPS,
+        p50 and ATE, held to the JAX package's ATE; LightGlue card against
+        CPU on frames 0-1 (scores within LG_TOL, at most 1 % of the indices
+        differing);
+     c. phase 8's loop stage with the COSPLACE detector in place of DBOW3:
+        150/150 tracked, ATE under ATE_MAX, one fast_nms launch a frame,
+        every keyframe described (a unit 128-d descriptor, no words) and in
+        the database; the relocalisation of phase 8 (reported); the
+        CosPlace descriptor of one keyframe's img_vpr card against CPU
+        within VPR_TOL; loops closed beside the JAX package's count.
+     A ``models`` JSON line gathers their numbers.
 It ends with a JSON line of kernel results, the card's name and power limit,
 and, last, {"ok": true, "device": {...}}.
 """
@@ -208,6 +229,28 @@ ENTRY_ATE_MAX = 0.25
 ENTRY_DEPTH_THRESHOLD = 35.0
 ENTRY_RELOC_FRAMES = (20, 36)
 ENTRY_RELOC_WITHIN = 5
+# phases 14a-c: the learned models.  The JAX package on the CPU (x64 off):
+# SUPERPOINT + DBOW3_INDEPENDENT on phase 7's stream (python -m
+# tests.torch_sensor_stage --package jax --sensor stereo --preset SUPERPOINT
+# --loop DBOW3_INDEPENDENT) loses frame 1 and resets: 28 of 60 frames
+# tracked, 27 resets, ATE 13.1819 m (the port on the CPU the same); its
+# LIGHTGLUE VO on phase 11's frames (--sensor vo --preset LIGHTGLUE) makes
+# no match (the matcher's best confidence stays under its 0.1 threshold):
+# ATE 13.8545 m; bench.py's loop stage with COSPLACE (python -m
+# tests.torch_loop_stage --package jax --loop COSPLACE) tracks 143 of 150
+# frames, closes 3 loops, ATE 0.6465 m.  The SuperPoint session may track
+# SP_TRACK_MARGIN frames fewer than the reference (float32 differences in a
+# session that resets every second frame); the VO's ATE is held to the
+# reference's
+SP_FEATURES = 1000
+SP_TOL = LG_TOL = VPR_TOL = 1e-4
+WITNESS_SP = (28, 27, 13.1819)
+SP_TRACK_MARGIN = 2
+WITNESS_VO_LG_ATE, VO_LG_ATE_TOL = 13.8545, 1e-3
+WITNESS_COSPLACE = (143, 3, 0.6465)
+# float32 operations a second of the H100 SXM outside the tensor cores,
+# counting a multiply-add as two (NVIDIA data sheet, 700 W)
+PEAK_FP32_FLOPS = 67e12
 
 
 def log(msg):
@@ -644,9 +687,10 @@ def ate_of(slam, gt_t, gt_p):
     return float(eval_ate(ts, Twc[:, :3, 3], gt_t, gt_p, align=True, with_scale=False).rmse)
 
 
-def loop_phase(dev, cam_args, frames):
-    """Phase 8: bench.py's loop stage on the port; returns its fast_nms
-    launches.  ``frames`` are the rendered (left, right, timestamp)."""
+def loop_phase(dev, cam_args, frames, loop="DBOW3"):
+    """Phase 8 (and 14c with ``loop="COSPLACE"``): bench.py's loop stage on
+    the port with the ``loop`` detector; returns its numbers.  ``frames``
+    are the rendered (left, right, timestamp)."""
     import torch
 
     from pyslam_tpu_torch.features.tracker import FeatureTrackerConfig
@@ -660,8 +704,9 @@ def loop_phase(dev, cam_args, frames):
     gt_t = np.asarray([ds.getTimestamp(i) for i in range(LOOP_FRAMES)])
     gt_p = ds.poses[:LOOP_FRAMES, :3, 3]
     cam = PinholeCamera(*cam_args, fps=ds.fps, bf=ds.fx * ds.baseline, depth_threshold=35.0)
+    tag = "[loop]" if loop == "DBOW3" else f"[{loop.lower()}]"
     slam = Slam(cam, FeatureTrackerConfig(num_features=N_FEATURES, num_levels=N_LEVELS),
-                loop_detector_config="DBOW3", sensor_type=SensorType.STEREO, device=dev)
+                loop_detector_config=loop, sensor_type=SensorType.STEREO, device=dev)
     lc = slam.loop_closing
     events, pgo_args = [], []
     correct = lc.correct_loop
@@ -695,12 +740,12 @@ def loop_phase(dev, cam_args, frames):
         lats.append(time.perf_counter() - t1)
         if len(events) > n_events:
             e = events[-1]
-            log(f"[loop] frame {i}: loop kf {e['kf']} <-> kf {e['cand']} closed in a "
+            log(f"{tag} frame {i}: loop kf {e['kf']} <-> kf {e['cand']} closed in a "
                 f"{lats[-1] * 1e3:.1f} ms frame; geometry {json.dumps(e['geometry'])}; PGO "
                 f"{e['pgo'][0]} vertices, {e['pgo'][1]} edges; ATE so far {e['ate_before']:.4f}"
                 f" m before the correction, {e['ate_after']:.4f} m after")
         elif i % 25 == 0:
-            log(f"[loop] frame {i}: {lats[-1] * 1e3:.1f} ms, {slam.map.num_keyframes()} "
+            log(f"{tag} frame {i}: {lats[-1] * 1e3:.1f} ms, {slam.map.num_keyframes()} "
                 f"keyframes, {slam.map.num_points()} points")
     slam.finish()
     torch.cuda.synchronize()
@@ -713,23 +758,30 @@ def loop_phase(dev, cam_args, frames):
     ate = ate_of(slam, gt_t, gt_p)
     lat_ms = np.asarray(lats[LOOP_SKIP:]) * 1e3
     gba = slam.GBA
-    log(f"[loop] {LOOP_FRAMES / wall:.2f} FPS over {LOOP_FRAMES} frames (incl. final drain), "
+    log(f"{tag} {LOOP_FRAMES / wall:.2f} FPS over {LOOP_FRAMES} frames (incl. final drain), "
         f"latency p50 {np.percentile(lat_ms, 50):.1f} ms p95 {np.percentile(lat_ms, 95):.1f} ms"
         f" max {lat_ms.max():.1f} ms (frame {LOOP_SKIP + int(np.argmax(lat_ms))}) over frames "
         f"{LOOP_SKIP}-{LOOP_FRAMES - 1}; {lc.num_loops_closed} loops closed; "
         f"{n_tracked}/{LOOP_FRAMES} tracked; {slam.map.num_keyframes()} keyframes, "
         f"{slam.map.num_points()} points; ATE {ate:.4f} m; GBA {gba.runs_completed} applied, "
         f"{gba.runs_aborted} aborted (cost {gba.last_cost:.3f}); fast_nms launches {launches}")
-    log("[loop] stage totals (ms, calls): " + json.dumps(
+    log(f"{tag} stage totals (ms, calls): " + json.dumps(
         {mod: {k: [round(v["total_ms"], 1), v["calls"]] for k, v in st.items()}
          for mod, st in slam.timings().items()
          if mod in ("loop_closing", "gba", "local_mapping")}))
-    assert lc.num_loops_closed >= 1, "no loop closed"
+    out = dict(loop=loop, launches=launches, n_tracked=n_tracked, ate=ate,
+               loops_closed=lc.num_loops_closed, keyframes=slam.map.num_keyframes(),
+               fps=LOOP_FRAMES / wall, p50_ms=float(np.percentile(lat_ms, 50)),
+               p95_ms=float(np.percentile(lat_ms, 95)), gba_applied=gba.runs_completed)
+    if loop == "DBOW3":
+        assert lc.num_loops_closed >= 1, "no loop closed"
+        assert gba.runs_completed >= 1, "no GBA applied"
     assert n_tracked == LOOP_FRAMES, f"{n_tracked}/{LOOP_FRAMES} tracked"
     assert np.isfinite(poses).all() and ate < ATE_MAX, ate
-    assert gba.runs_completed >= 1, "no GBA applied"
     assert launches == LOOP_FRAMES, f"{launches} fast_nms launches for {LOOP_FRAMES} frames"
     assert slam.map.device.type == "cuda" and slam.map.device_store()[0].device.type == "cuda"
+    if lc.detector.score_based:
+        out.update(vpr_check(lc, slam))
 
     # a lost frame relocalised on the card: frame RELOC_FRAME again, its
     # pose pushed 1 m away, against the final map; held to its tracked pose
@@ -744,8 +796,12 @@ def loop_phase(dev, cam_args, frames):
     lost.update_pose(push @ np.linalg.inv(Twc_tracked))
     T_rel, ok_rel = lc.relocalizer.relocalize(lost, slam.map)
     err = float(np.linalg.norm(np.linalg.inv(T_rel)[:3, 3] - Twc_tracked[:3, 3]))
-    log(f"[loop] frame {RELOC_FRAME} relocalised from a pose 1.1 m off: ok {ok_rel}, "
+    log(f"{tag} frame {RELOC_FRAME} relocalised from a pose 1.1 m off: ok {ok_rel}, "
         f"{int((lost.points >= 0).sum())} points, {err:.4f} m from its tracked pose")
+    out.update(reloc_ok=bool(ok_rel), reloc_err_m=err)
+    if loop != "DBOW3":
+        gba.finish()
+        return out
     assert ok_rel and err < 0.3, (ok_rel, err)
 
     # the loop event's device cost, replayed on the final map (its result
@@ -769,7 +825,41 @@ def loop_phase(dev, cam_args, frames):
     log(f"[loop] loop event on the final map ({slam.map.num_keyframes()} keyframes, "
         f"{slam.map.num_points()} points), kernel launches and summed kernel time (ms, "
         f"torch.profiler): " + json.dumps({k: [n, round(ms, 4)] for k, (n, ms) in cost.items()}))
-    return launches
+    return out
+
+
+def vpr_check(lc, slam):
+    """Phase 14c's checks of a score-based detector after its stage: every
+    keyframe described (a unit global descriptor, no words) and held in
+    the database; the descriptor of one keyframe's img_vpr on the card
+    against the CPU (CosPlaceExtractor built there from the same bundled
+    weights) within VPR_TOL; the time of one description on the card."""
+    import torch
+
+    from pyslam_tpu_torch.models.cosplace import CosPlaceExtractor
+
+    db, net = lc.db, lc.detector.netvlad
+    kids = sorted(slam.map.keyframes)
+    missing = [k for k in kids if k not in db.kf_gdes]
+    assert not missing, f"keyframes not in the database: {missing}"
+    g = np.stack([db.kf_gdes[k] for k in kids])
+    assert g.shape == (len(kids), net.out_dim) and all(len(db.kf_words[k]) == 0 for k in kids)
+    assert np.allclose(np.linalg.norm(g, axis=1), 1.0, atol=1e-4)
+    kf = slam.map.keyframes[kids[len(kids) // 2]]
+    assert kf.img_vpr is not None and kf.img_vpr.shape == ((H + 1) // 2, (W + 1) // 2)
+    cpu = CosPlaceExtractor(device="cpu")
+    assert net.trained and cpu.trained and net.device.type == "cuda"
+    err = float(np.abs(net(kf.img_vpr) - cpu(kf.img_vpr)).max())
+    canvas = torch.from_numpy(net.prepare(kf.img_vpr)).to(net.device)
+    ms = events_ms(lambda: net.describe(canvas))
+    log(f"[cosplace] {len(kids)} keyframes described and in the database "
+        f"({len(db.kf_gdes)} entries, {net.out_dim}-d, no words); kf {kf.kid}'s img_vpr "
+        f"{kf.img_vpr.shape[0]}x{kf.img_vpr.shape[1]} on the {net.image_hw[0]}x"
+        f"{net.image_hw[1]} canvas: card against CPU within {err:.3g} (tolerance {VPR_TOL}); "
+        f"one description {ms:.3f} ms on the card (CUDA events)")
+    assert err <= VPR_TOL, err
+    return dict(described=len(kids), db_entries=len(db.kf_gdes), desc_max_abs_err=err,
+                describe_ms=ms)
 
 
 def sensor_stage(dev, sensor, frames, cam, ds, integ=None):
@@ -1263,6 +1353,156 @@ def features_phase(dev, frames, cam, ds):
     return out
 
 
+def conv_flops(net, x):
+    """Floating-point operations (a multiply-add as two) of net(x)'s
+    convolutions, from the layer shapes of one forward pass."""
+    import torch
+
+    flops = []
+
+    def hook(mod, inp, out):
+        k = mod.weight[0].numel()          # Cin / groups * kh * kw
+        flops.append(2 * k * out.numel() + (out.numel() if mod.bias is not None else 0))
+
+    hooks = [m.register_forward_hook(hook) for m in net.modules()
+             if isinstance(m, torch.nn.Conv2d)]
+    with torch.no_grad():
+        net(x)
+    for h in hooks:
+        h.remove()
+    return sum(flops)
+
+
+def superpoint_phase(dev, frames, cam, ds):
+    """Phase 14a: SuperPoint card against CPU on frames 0-1, its forward
+    time, then the SUPERPOINT + DBOW3_INDEPENDENT stereo session; returns
+    its numbers."""
+    import torch
+
+    from pyslam_tpu_torch.features.orb2 import FeatureData
+    from pyslam_tpu_torch.models.superpoint import _INV_255, SuperPointExtractor
+    from pyslam_tpu_torch.ops import image as image_ops
+
+    ex = [SuperPointExtractor(num_features=SP_FEATURES, device=d) for d in (dev, "cpu")]
+    assert all(e.trained for e in ex), "SuperPoint without its bundled weights"
+    prob_err = desc_err = diff_resp = 0.0
+    n_same = n_total = n_valid = 0
+    for i in (0, 1):
+        img = frames[i][0]
+        (pg, _), (pc, _) = [e.maps(image_ops.gray_image(img, e.device)) for e in ex]
+        prob_err = max(prob_err, float((pg.cpu() - pc).abs().max()))
+        fg, fc = [[x.cpu().numpy() for x in e(img)] for e in ex]
+        g, c = dict(zip(FeatureData._fields, fg)), dict(zip(FeatureData._fields, fc))
+        same = np.all(g["xy"] == c["xy"], 1) & (g["valid"] == c["valid"])
+        n_same += int(same.sum())
+        n_total += len(same)
+        n_valid += int(c["valid"].sum())
+        if (~same).any():
+            diff_resp = max(diff_resp, float(np.abs(g["response"] - c["response"])[~same].max()))
+        shared = same & c["valid"]
+        desc_err = max(desc_err, float(np.abs(g["desc"] - c["desc"])[shared].max()))
+    share = n_same / n_total
+    log(f"[superpoint] card against CPU, frames 0-1 ({H}x{W} cropped to {H // 8 * 8}x"
+        f"{W // 8 * 8}): probability map within {prob_err:.3g} (tolerance {SP_TOL}); "
+        f"{share * 100:.2f}% of {n_total} keypoint slots identical ({n_valid} valid on the "
+        f"CPU), the others at responses within {diff_resp:.3g}; descriptors within "
+        f"{desc_err:.3g}")
+    assert prob_err <= SP_TOL and share >= 0.99 and diff_resp <= SP_TOL, \
+        (prob_err, share, diff_resp)
+    assert desc_err <= SP_TOL, desc_err
+
+    # the forward pass and the whole extraction on one image, on the card
+    img_t = image_ops.gray_image(frames[0][0], dev)
+    x = img_t[None, None, : H // 8 * 8, : W // 8 * 8] * _INV_255
+    net = ex[0].net
+    flops = conv_flops(net, x)
+    with torch.no_grad():
+        fwd_ms = events_ms(lambda: net(x))
+    ext_ms = events_ms(lambda: ex[0].extract(img_t))
+    share_peak = flops / (fwd_ms * 1e-3) / PEAK_FP32_FLOPS
+    log(f"[superpoint] one {H // 8 * 8}x{W // 8 * 8} image on the card: forward {fwd_ms:.3f} ms, "
+        f"extraction with the decoding {ext_ms:.3f} ms (CUDA events, back-to-back calls); "
+        f"{flops / 1e9:.2f} GFLOP of convolutions (from the layer shapes), "
+        f"{share_peak * 100:.1f}% of the float32 peak of 67 TFLOP/s (TF32 off)")
+    del ex
+    torch.cuda.empty_cache()
+
+    sess = preset_session(dev, "SUPERPOINT", frames, cam, ds, loop="DBOW3_INDEPENDENT")
+    n = len(frames)
+    log(f"[superpoint] SUPERPOINT + DBOW3_INDEPENDENT {n} frames on the card: "
+        f"{sess['n_tracked']} tracked, {sess['resets']} resets, ATE {sess['ate']:.4f} m; the JAX "
+        f"package on the CPU: {WITNESS_SP[0]} tracked, {WITNESS_SP[1]} resets, ATE "
+        f"{WITNESS_SP[2]} m")
+    assert sess["desc"] == "256xfloat32", sess
+    assert sess["launches"] == 0, f"{sess['launches']} fast_nms launches on the SuperPoint path"
+    assert sess["n_tracked"] >= WITNESS_SP[0] - SP_TRACK_MARGIN, sess
+    return dict(card_vs_cpu=dict(prob_max_abs_err=prob_err, keypoints_identical=share,
+                                 diff_resp=diff_resp, desc_max_abs_err=desc_err),
+                forward_ms=fwd_ms, extract_ms=ext_ms, gflop=flops / 1e9,
+                fp32_peak_share=share_peak, session=sess)
+
+
+def lightglue_vo_phase(dev, frames, cam, ds):
+    """Phase 14b: VisualOdometry with the LIGHTGLUE preset on phase 11's
+    frames, then LightGlue card against CPU on frames 0-1; returns its
+    numbers."""
+    import torch
+
+    from pyslam_tpu_torch.evaluation.metrics import eval_ate
+    from pyslam_tpu_torch.features.tracker import feature_tracker_factory
+    from pyslam_tpu_torch.io.ground_truth import groundtruth_factory
+    from pyslam_tpu_torch.ops.fast import fast_nms
+    from pyslam_tpu_torch.slam.visual_odometry import VisualOdometry
+
+    n = len(frames)
+    gt = groundtruth_factory({"type": "synthetic", "dataset": ds})
+    tracker = feature_tracker_factory("LIGHTGLUE", device=dev)
+    glue = tracker.matcher.glue
+    assert tracker.extractor.trained and glue.trained, "LIGHTGLUE without its bundled weights"
+    vo = VisualOdometry(cam, tracker, groundtruth=gt)
+    lats, matches = [], 0
+    torch.cuda.synchronize()
+    fast_nms.launches = 0
+    t0 = time.perf_counter()
+    for i, (img, _, ts) in enumerate(frames):
+        t1 = time.perf_counter()
+        vo.track(img, i, ts)
+        lats.append(time.perf_counter() - t1)
+        matches += vo.num_matches
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    ate = float(eval_ate(np.asarray(vo.timestamps), vo.trajectory, gt.timestamps,
+                         gt.positions[:n], align=True, with_scale=False).rmse)
+    out = dict(fps=n / wall, p50_ms=float(np.percentile(np.asarray(lats[1:]) * 1e3, 50)),
+               ate=ate, matches=matches, launches=fast_nms.launches)
+    log(f"[lightglue] VO {out['fps']:.2f} FPS over {n} frames, latency p50 "
+        f"{out['p50_ms']:.1f} ms, {matches} matches in all, ATE {ate:.4f} m; the JAX package "
+        f"on the CPU: ATE {WITNESS_VO_LG_ATE} m (no matches)")
+
+    # card against CPU on frames 0-1: the CPU's SuperPoint features matched
+    # by the network on each device
+    cpu = feature_tracker_factory("LIGHTGLUE", device="cpu")
+    f0, f1 = [cpu.detectAndCompute(frames[i][0]) for i in (0, 1)]
+    s_cpu = cpu.matcher.glue.scores(f0, f1)
+    s_card = glue.scores(f0, f1).cpu()
+    pair_ok = f0.valid[:, None] & f1.valid[None, :]
+    err = float((s_card - s_cpu).abs()[pair_ok].max())
+    idx_c, _ = cpu.matcher.glue.match(f0, f1)
+    idx_g, _ = glue.match(f0, f1)
+    differ = float((idx_g.cpu() != idx_c).double().mean())
+    g0, g1 = [type(f)(*[x.to(dev) for x in f]) for f in (f0, f1)]
+    ms = events_ms(lambda: glue.scores(g0, g1))
+    log(f"[lightglue] card against CPU, frames 0-1 ({int(f0.valid.sum())} x "
+        f"{int(f1.valid.sum())} valid keypoints): log-assignment scores of the valid pairs "
+        f"within {err:.3g} (tolerance {LG_TOL}), {differ * 100:.2f}% of the match indices "
+        f"differ ({int((idx_c >= 0).sum())} matches on the CPU); the network {ms:.3f} ms on "
+        f"the card (CUDA events)")
+    assert err <= LG_TOL and differ <= 0.01, (err, differ)
+    assert ate <= WITNESS_VO_LG_ATE + VO_LG_ATE_TOL, ate
+    out.update(scores_max_abs_err=err, indices_differ=differ, network_ms=ms)
+    return out
+
+
 def write_kitti_sequence(root, frames, ds):
     """Phase 7's stereo frames as a KITTI odometry sequence 00 under
     ``root`` (uint8 PNGs as bench.py's frame cache stores them, times.txt,
@@ -1664,9 +1904,9 @@ def main():
     loop_frames = render(render_loop_frames, LOOP_FRAMES)
     log(f"[loop] rendered {LOOP_FRAMES} stereo frames {H}x{W} in "
         f"{time.perf_counter() - t0:.1f} s (worker processes)")
-    loop_launches = loop_phase(dev, (ds.w, ds.h, ds.fx, ds.fy, ds.cx, ds.cy), loop_frames)
-    del loop_frames
-    torch.cuda.empty_cache()
+    cam_args = (ds.w, ds.h, ds.fx, ds.fy, ds.cx, ds.cy)
+    loop_launches = loop_phase(dev, cam_args, loop_frames)["launches"]
+    torch.cuda.empty_cache()   # the frames stay for phase 14c
 
     # ---------------------------------------------------------------- 9
     from pyslam_tpu_torch.config_parameters import Parameters
@@ -1739,6 +1979,20 @@ def main():
     entry = entry_phase(dev, frames, ds)
     print(json.dumps({"entry": entry}, default=float), flush=True)
 
+    # ---------------------------------------------------------------- 14
+    models = {"superpoint": superpoint_phase(dev, frames, cam, ds),
+              "lightglue_vo": lightglue_vo_phase(dev, rgbd_frames, cam_mono, ds_rgbd)}
+    retain = Parameters.kRetainImageForVPR
+    try:
+        cos = models["cosplace"] = loop_phase(dev, cam_args, loop_frames, loop="COSPLACE")
+    finally:
+        Parameters.kRetainImageForVPR = retain
+    log(f"[cosplace] loop stage: {cos['n_tracked']}/{LOOP_FRAMES} tracked, "
+        f"{cos['loops_closed']} loops closed, ATE {cos['ate']:.4f} m; the JAX package on the "
+        f"CPU: {WITNESS_COSPLACE[0]}/{LOOP_FRAMES} tracked, {WITNESS_COSPLACE[1]} loops closed, "
+        f"ATE {WITNESS_COSPLACE[2]} m")
+    print(json.dumps({"models": models}, default=float), flush=True)
+
     print(json.dumps({"kernels": [{
         "name": "fast_nms", "route": "cuda",
         "source": "pyslam_tpu_torch/csrc/fast_nms.cu",
@@ -1749,6 +2003,8 @@ def main():
         "launches_vo_mono": vo["mono"]["launches"], "launches_vo_rgbd": vo["rgbd"]["launches"],
         "launches_beblid_stage": feats["ORB2_BEBLID"]["launches"],
         "launches_entry_stage": entry["launches"],
+        "launches_superpoint_stage": models["superpoint"]["session"]["launches"],
+        "launches_cosplace_stage": cos["launches"],
         "mono_frame": one["b1_pyramid"], "vo_rgbd_level_th15": one["vo_level_th15"],
         "max_abs_err": max_err, "ms": kern_ms, "plain_ms": plain_ms,
         "bound_ms": work["bound_ms"], "bound_by": work["bound_by"], "library_ms": None,

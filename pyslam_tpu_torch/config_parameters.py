@@ -99,6 +99,7 @@ class Parameters:
     kLoopClosingTh2 = 10.0
     kLoopDetectionMinFramesAfterLastDetection = 10
     kLoopDetectionMinKeyframeDistance = 10  # candidate must be >= N keyframes old (temporal gate)
+    kRetainImageForVPR = False              # keep half-res frame copies for learned VPR (CosPlace-class)
     kSim3SolverRansacIterations = 300
     kSim3SolverMinInliers = 20
     kLoopClosingFeatureMatchRatioTest = 0.9  # ref :259

@@ -6,7 +6,8 @@ binary bit-planes, L2 or cosine for float descriptors) and the filtering
 mode (brute force with the ratio test and a one-to-one cross-check, or a
 plain gated nearest neighbour).  The work is done by ``ops.hamming`` and
 ``ops.matching`` on the descriptors' device.  The attention matcher
-(LightGlue) needs learned weights and waits for the learned-model slice.
+(``LightGlueFeatureMatcher``) runs ``models.lightglue`` on keypoints and
+descriptors; a call with descriptors only stays the L2 ratio test.
 """
 
 from __future__ import annotations
@@ -57,13 +58,21 @@ class FeatureMatcher:
 
 
 class LightGlueFeatureMatcher(FeatureMatcher):
-    """The attention matcher: it runs a learned network, which the port
-    brings with the learned-model slice."""
+    """Attention matcher over descriptors and keypoint coordinates on
+    ``device``; ``match`` (descriptors only: the stereo rows, the search by
+    projection) stays the ratio-test brute force of ``FeatureMatcher``."""
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(
-            "LightGlue needs learned weights: it comes with the learned-model slice "
-            "(ROADMAP item 3, learned models with bundled weights)")
+    def __init__(self, norm: NormType = NormType.L2, input_dim: int = 256,
+                 checkpoint: str | None = None, *, device: torch.device | str = "cuda", **kw):
+        super().__init__(norm=norm, matcher_type=FeatureMatcherTypes.LIGHTGLUE, **kw)
+        from pyslam_tpu_torch.models.lightglue import LightGlueMatcher
+
+        self.glue = LightGlueMatcher(input_dim=input_dim, checkpoint=checkpoint, device=device)
+
+    def match_features(self, f1, f2, image_wh=(640.0, 480.0)):
+        """FeatureData x FeatureData -> (idx2 for each keypoint of f1, -1
+        where unmatched; confidence), on the device."""
+        return self.glue.match(f1, f2, image_wh=image_wh)
 
 
 def feature_matcher_factory(norm: NormType = NormType.HAMMING,

@@ -5,9 +5,12 @@ Every preset that needs no learned weights runs: ORB2 / ORB2_BF / ORB /
 FAST_ORB (FAST + rBRIEF), BRISK / ORB2_FREAK / ORB2_BEBLID (the ORB2
 detector re-described with 512-bit patterns), SURF, KAZE, AKAZE, SIFT and
 ROOT_SIFT (cv2 on the host), and the Lucas-Kanade trackers LK_FAST and
-LK_SHI_TOMASI (``LkFeatureTracker.track_lk``).  The learned presets
-(SuperPoint, the patch-descriptor networks, LightGlue, MASt3R, LoFTR and the
-rest) raise ``ValueError``: they come with the learned-model slice.
+LK_SHI_TOMASI (``LkFeatureTracker.track_lk``).  Of the learned presets,
+SUPERPOINT (``models.superpoint``, L2 brute-force matching) and LIGHTGLUE
+(SuperPoint keypoints matched by ``models.lightglue``) run with the JAX
+package's bundled weights; the others (the patch-descriptor networks,
+LightGlue on other descriptors, XFeat, MASt3R, LoFTR and the rest) raise
+``ValueError``: they come with later parts of the learned-model slice.
 """
 
 from __future__ import annotations
@@ -32,7 +35,8 @@ from pyslam_tpu_torch.features.types import (
     NormType,
 )
 
-LEARNED_SLICE = "the learned-model slice (ROADMAP item 3, learned models with bundled weights)"
+LEARNED_SLICE = ("a later part of the learned-model slice (ROADMAP item 3, learned models "
+                 "with bundled weights)")
 
 
 class FeatureTrackerTypes(enum.Enum):
@@ -160,6 +164,9 @@ class FeatureTrackerConfigs:
 WEIGHT_FREE_PRESETS = ("ORB2", "ORB2_BF", "ORB", "FAST_ORB", "LK_FAST", "LK_SHI_TOMASI",
                        "SIFT", "ROOT_SIFT", "SURF", "KAZE", "AKAZE", "BRISK", "ORB2_FREAK",
                        "ORB2_BEBLID")
+# every preset the port runs: the weight-free ones and the learned ones
+# whose weights the JAX package bundles
+PORTED_PRESETS = WEIGHT_FREE_PRESETS + ("SUPERPOINT", "LIGHTGLUE")
 
 
 def _learned(config: FeatureTrackerConfig, what: str) -> ValueError:
@@ -193,6 +200,10 @@ def _make_extractor(config: FeatureTrackerConfig, device: torch.device):
         return (AkazeExtractor(num_features=config.num_features,
                                descriptor="KAZE" if kaze else "MLDB", device=device),
                 NormType.L2 if kaze else NormType.HAMMING)
+    if det == _D.SUPERPOINT:
+        from pyslam_tpu_torch.models.superpoint import SuperPointExtractor
+
+        return SuperPointExtractor(num_features=config.num_features, device=device), NormType.L2
     raise _learned(config, f"the {det.name} detector")
 
 
@@ -201,9 +212,11 @@ class FeatureTracker:
     unless the caller asks for another)."""
 
     def __init__(self, config: FeatureTrackerConfig, *, device: torch.device | str = "cuda"):
-        if config.tracker_type in (_T.LIGHTGLUE, _T.XFEAT, _T.MAST3R, _T.LOFTR):
-            raise _learned(config, f"the {config.tracker_type.name} matcher")
         desc = config.descriptor_type
+        if config.tracker_type in (_T.XFEAT, _T.MAST3R, _T.LOFTR):
+            raise _learned(config, f"the {config.tracker_type.name} matcher")
+        if config.tracker_type == _T.LIGHTGLUE and desc != _S.SUPERPOINT:
+            raise _learned(config, f"the LIGHTGLUE matcher on {desc.name} descriptors")
         if desc in PATCH_DESCRIPTOR_TYPES or desc == _S.CONTEXTDESC:
             raise _learned(config, f"the {desc.name} descriptor")
         self.config = config
@@ -218,11 +231,17 @@ class FeatureTracker:
             self.extractor = BinaryDescribedExtractor(self.extractor, desc.name)
             self.norm = NormType.HAMMING
         info = FEATURE_INFO.get(desc)
-        mtype = (FeatureMatcherTypes.NN if config.tracker_type == _T.DES_NN
-                 else FeatureMatcherTypes.BF)
-        self.matcher: FeatureMatcher = feature_matcher_factory(
-            norm=self.norm, matcher_type=mtype,
-            max_distance=info.max_distance if info else None, ratio_test=config.ratio_test)
+        if config.tracker_type == _T.LIGHTGLUE:
+            self.matcher: FeatureMatcher = feature_matcher_factory(
+                norm=self.norm, matcher_type=FeatureMatcherTypes.LIGHTGLUE,
+                input_dim=int(config.extra.get("desc_dim", 256)),
+                checkpoint=config.extra.get("matcher_checkpoint"), device=self.device)
+        else:
+            mtype = (FeatureMatcherTypes.NN if config.tracker_type == _T.DES_NN
+                     else FeatureMatcherTypes.BF)
+            self.matcher = feature_matcher_factory(
+                norm=self.norm, matcher_type=mtype,
+                max_distance=info.max_distance if info else None, ratio_test=config.ratio_test)
         self.scale_factors = self.extractor.scale_factors
         self.sigma2 = self.extractor.sigma2
         self.inv_sigma2 = 1.0 / self.sigma2
@@ -232,10 +251,14 @@ class FeatureTracker:
         return self.extractor(img)
 
     def match(self, f1: FeatureData, f2: FeatureData, ratio: float | None = None):
-        """Match two FeatureData with the preset's matcher; returns (idx1,
-        idx2) host arrays."""
-        idx2, _ = self.matcher.match(f1.desc, f2.desc, valid1=f1.valid, valid2=f2.valid,
-                                     ratio=ratio)
+        """Match two FeatureData with the preset's matcher (the network of
+        a matcher that has ``match_features``); returns (idx1, idx2) host
+        arrays."""
+        if hasattr(self.matcher, "match_features"):
+            idx2, _ = self.matcher.match_features(f1, f2)
+        else:
+            idx2, _ = self.matcher.match(f1.desc, f2.desc, valid1=f1.valid, valid2=f2.valid,
+                                         ratio=ratio)
         idx2 = idx2.cpu().numpy()
         idx1 = np.nonzero(idx2 >= 0)[0]
         return idx1, idx2[idx1]

@@ -17,7 +17,10 @@ dispatched to run asynchronously.
 
 Host bookkeeping is numpy; the matching, RANSAC, LM, pose graph and BA run
 on the device.  ``save``/``load`` carry the DB and the vocabulary with the
-system state.  The learned and VLAD/SAD detectors are not ported yet.
+system state.  The COSPLACE and EIGENPLACES detectors describe a keyframe
+by a learned global descriptor (``models.cosplace``) and the database
+scores them by similarity alone; the other learned detectors (NETVLAD,
+MEGALOC, ALEXNET, HDC_DELF) and VLAD/SAD are not ported yet.
 """
 
 from __future__ import annotations
@@ -50,16 +53,22 @@ from pyslam_tpu_torch.utils.profiling import StageTimings
 
 _BOW_TYPES = (GlobalDescriptorType.DBOW2, GlobalDescriptorType.DBOW3,
               GlobalDescriptorType.IBOW, GlobalDescriptorType.OBINDEX2)
+_VPR_TYPES = (GlobalDescriptorType.COSPLACE, GlobalDescriptorType.EIGENPLACES)
 
 
 class LoopDetector:
-    """Bag-of-words descriptors of a frame: (word ids, tf histogram).  The
-    VLAD, SAD and learned global-descriptor detectors and the pretrained
-    vocabulary are refused."""
+    """A frame's descriptors for the keyframe database.  The BoW detectors
+    return (word ids, tf histogram); COSPLACE and EIGENPLACES (gmberton's
+    ResNet + GeM + Linear, one network class) return (None, global
+    descriptor) and are ``score_based``: the database ranks keyframes by
+    similarity alone.  They set ``Parameters.kRetainImageForVPR`` (for
+    every later frame of the process, as the reference does) so that
+    frames keep the half-resolution image they describe.  VLAD, SAD, the
+    other learned detectors and the pretrained vocabulary are refused."""
 
     def __init__(self, config: LoopDetectorConfig, *, device: torch.device | str = "cuda"):
         gdt = config.global_descriptor_type
-        if gdt not in _BOW_TYPES:
+        if gdt not in _BOW_TYPES + _VPR_TYPES:
             raise NotImplementedError(f"the {gdt.name} loop detector is not ported yet")
         if config.vocabulary_type == LoopDetectorVocabularyType.PRETRAINED:
             raise NotImplementedError("the pretrained vocabulary import is not ported yet")
@@ -70,8 +79,22 @@ class LoopDetector:
             self.vocabulary = BinaryVocabulary(num_words=config.num_words, device=device)
         self._trained = False
         self._train_buffer: list[np.ndarray] = []
+        self.netvlad = None   # the learned global descriptor (the reference's name)
+        if gdt in _VPR_TYPES:
+            from pyslam_tpu_torch.models.cosplace import CosPlaceExtractor
+
+            Parameters.kRetainImageForVPR = True
+            self.netvlad = CosPlaceExtractor(checkpoint=config.extra.get("checkpoint"),
+                                             device=device)
+        self.score_based = self.netvlad is not None
 
     def describe_frame(self, frame):
+        if self.netvlad is not None:
+            img = frame.img_vpr if frame.img_vpr is not None else frame.img_thumb
+            if img is not None:
+                return None, self.netvlad(img)
+            v = np.asarray(frame.des[frame.valid], np.float32).mean(axis=0)
+            return None, v / max(np.linalg.norm(v), 1e-12)
         if (self.config.vocabulary_type == LoopDetectorVocabularyType.SESSION_TRAINED
                 and not self._trained):
             valid = frame.valid
@@ -285,12 +308,14 @@ class LoopClosing:
         if (kf.kid - self.last_loop_kf_id >= Parameters.kLoopDetectionMinFramesAfterLastDetection
                 and self.map.num_keyframes() > 10):
             # query-time idf from the vocabulary's current document statistics
-            self.db.idf = self.detector.vocabulary.idf_weights()
+            if words is not None:
+                self.db.idf = self.detector.vocabulary.idf_weights()
             candidates = self.db.detect_loop_candidates(
                 kf.kid, words, g_des, set(kf.connected_keyframes.keys()), self._covisibles)
         # register after querying (no self-hit)
         self.db.add(kf.kid, words, g_des)
-        self.detector.vocabulary.add_document(words)
+        if words is not None:
+            self.detector.vocabulary.add_document(words)
         if not candidates:
             self.consistency.check([], self._covisibles)
             return

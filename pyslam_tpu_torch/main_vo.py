@@ -8,17 +8,25 @@ against the ground truth.  Defaults to the synthetic sequence:
     python -m pyslam_tpu_torch.main_vo --config config.yaml    # configured dataset
 
 It runs on the card (``--device cuda``, the default) unless ``--device
-cpu`` is given.
+cpu`` is given.  ``--features`` names a tracker preset (``LIGHTGLUE``:
+SuperPoint keypoints matched by LightGlue), at ``--num_features``; ORB2 and
+FAST run on 4 levels.  (The JAX package's ``main_vo.py`` builds
+``FeatureTrackerConfig(name=...)`` and so runs ORB2 whatever it is given.)
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 
 import numpy as np
 
 from pyslam_tpu_torch.evaluation.metrics import eval_ate
-from pyslam_tpu_torch.features.tracker import FeatureTrackerConfig, feature_tracker_factory
+from pyslam_tpu_torch.features.tracker import (
+    FeatureTrackerConfig,
+    FeatureTrackerConfigs,
+    feature_tracker_factory,
+)
 from pyslam_tpu_torch.io.dataset_factory import dataset_factory
 from pyslam_tpu_torch.io.ground_truth import groundtruth_factory
 from pyslam_tpu_torch.io.trajectory_writer import TrajectoryWriter
@@ -54,9 +62,15 @@ def main(argv=None) -> int:
         cam = PinholeCamera(dataset.w, dataset.h, dataset.fx, dataset.fy, dataset.cx,
                             dataset.cy, fps=dataset.fps)
 
-    tracker = feature_tracker_factory(
-        FeatureTrackerConfig(name=args.features, num_features=args.num_features,
-                             num_levels=4), device=device)
+    try:
+        tracker_cfg = dataclasses.replace(FeatureTrackerConfigs.get(args.features),
+                                          num_features=args.num_features)
+        if tracker_cfg.detector_type.name in ("ORB2", "FAST"):
+            tracker_cfg = dataclasses.replace(tracker_cfg, num_levels=4)
+    except KeyError:
+        tracker_cfg = FeatureTrackerConfig(name=args.features, num_features=args.num_features,
+                                           num_levels=4)
+    tracker = feature_tracker_factory(tracker_cfg, device=device)
     vo = VisualOdometry(cam, tracker, groundtruth=gt)
 
     for i in range(len(dataset)):

@@ -75,6 +75,20 @@ class Frame:
                        else torch.device("cpu"))
         self._dev: dict[str, torch.Tensor] = {}
         self._des_np = None
+        # the thumbnail average-pooled to about 64x64, and under kRetainImageForVPR
+        # the half-resolution uint8 copy, for appearance-based place
+        # recognition without the full frame in the map
+        self.img_thumb = self.img_vpr = None
+        if img is not None:
+            a = np.asarray(img.cpu() if isinstance(img, torch.Tensor) else img, np.float32)
+            if a.ndim == 3:
+                a = a.mean(axis=2)
+            h, w = a.shape
+            ph, pw = max(h // 64, 1), max(w // 64, 1)
+            gh, gw = h // ph, w // pw
+            self.img_thumb = a[: gh * ph, : gw * pw].reshape(gh, ph, gw, pw).mean(axis=(1, 3))
+            if Parameters.kRetainImageForVPR:
+                self.img_vpr = a[::2, ::2].astype(np.uint8)
         if img is None or feature_tracker is None:
             # no extraction: empty slots in the reference's default layout
             n = Parameters.kNumFeatures

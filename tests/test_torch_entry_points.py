@@ -38,20 +38,21 @@ def _restore_parameters():
     Parameters.set_from_dict(saved)
 
 
-def write_kitti(root):
-    """The line stream as KITTI sequence 00 under ``root``; returns the
-    config.yaml path."""
-    ds = SyntheticDataset(num_frames=N_KITTI, sensor_type=SensorType.STEREO,
+def write_kitti(root, features="ORB2", loop="DBOW3", n_frames=N_KITTI):
+    """The line stream (``n_frames`` of it) as KITTI sequence 00 under
+    ``root``, its config.yaml naming the ``features`` and ``loop``
+    presets; returns the config.yaml path."""
+    ds = SyntheticDataset(num_frames=n_frames, sensor_type=SensorType.STEREO,
                           trajectory="line", step=0.4)
     seq = os.path.join(root, "sequences", "00")
     for sub in ("image_0", "image_1"):
         os.makedirs(os.path.join(seq, sub))
     os.makedirs(os.path.join(root, "poses"))
-    for i in range(N_KITTI):
+    for i in range(n_frames):
         Image.fromarray(ds.getImage(i).astype(np.uint8)).save(f"{seq}/image_0/{i:06d}.png")
         Image.fromarray(ds.getImageRight(i).astype(np.uint8)).save(f"{seq}/image_1/{i:06d}.png")
-    np.savetxt(f"{seq}/times.txt", [ds.getTimestamp(i) for i in range(N_KITTI)], fmt="%.6e")
-    np.savetxt(f"{root}/poses/00.txt", ds.poses[:, :3, :].reshape(N_KITTI, 12))
+    np.savetxt(f"{seq}/times.txt", [ds.getTimestamp(i) for i in range(n_frames)], fmt="%.6e")
+    np.savetxt(f"{root}/poses/00.txt", ds.poses[:, :3, :].reshape(n_frames, 12))
     bf = ds.fx * ds.baseline
     settings = {"Camera.fx": ds.fx, "Camera.fy": ds.fy, "Camera.cx": ds.cx, "Camera.cy": ds.cy,
                 "Camera.width": ds.w, "Camera.height": ds.h, "Camera.fps": ds.fps,
@@ -61,7 +62,7 @@ def write_kitti(root):
     cfg = {"DATASET": {"type": "KITTI"},
            "KITTI": {"type": "kitti", "base_path": root, "name": "00", "sensor_type": "stereo",
                      "settings": "settings.yaml", "groundtruth_file": "poses/00.txt",
-                     "FeatureTrackerConfig.name": "ORB2", "LoopDetectionConfig.name": "DBOW3"},
+                     "FeatureTrackerConfig.name": features, "LoopDetectionConfig.name": loop},
            "GLOBAL_PARAMETERS": {"kVolumetricIntegrationTableCapacity": 1 << 18,
                                  "kVolumetricIntegrationDepthTruncOutdoor": 20.0}}
     with open(f"{root}/config.yaml", "w") as f:

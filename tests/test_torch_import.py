@@ -96,7 +96,11 @@ def test_import_builds_nothing():
                                   "features.tracker.LkFeatureTracker",
                                   "evaluation.manager.SlamEvaluationManager",
                                   "loop_closing.vocabulary.HierarchicalVocabulary.load",
-                                  "loop_closing.vocabulary.BinaryVocabulary.load"])
+                                  "loop_closing.vocabulary.BinaryVocabulary.load",
+                                  "models.superpoint.SuperPointExtractor",
+                                  "models.lightglue.LightGlueMatcher",
+                                  "models.cosplace.CosPlaceExtractor",
+                                  "features.matcher.LightGlueFeatureMatcher"])
 def test_entry_points_default_to_the_card(name):
     """The entry points run on the card unless the caller asks for the CPU;
     ``device`` is keyword-only."""
@@ -143,10 +147,16 @@ def test_loop_closing_slam_runs_on_the_card():
 @pytest.mark.parametrize("preset", ["VLAD", "SAD", "NETVLAD", "COSPLACE", "EIGENPLACES",
                                     "MEGALOC", "ALEXNET", "HDC_DELF", "PRETRAINED"])
 def test_detector_refuses_what_is_not_ported(preset):
-    """The learned VPR, VLAD and SAD detectors and the pretrained
-    vocabulary raise NotImplementedError; the BoW presets build."""
+    """The learned VPR detectors other than COSPLACE and EIGENPLACES, VLAD,
+    SAD and the pretrained vocabulary raise NotImplementedError.  COSPLACE
+    and EIGENPLACES (ported) build on the CPU with trained weights and
+    describe one frame by a unit global descriptor and no words."""
     import dataclasses
+    from types import SimpleNamespace
 
+    import numpy as np
+
+    from pyslam_tpu_torch.config_parameters import Parameters
     from pyslam_tpu_torch.loop_closing.loop_closing import LoopDetector
     from pyslam_tpu_torch.loop_closing.loop_detector_configs import (
         LoopDetectorConfigs, LoopDetectorVocabularyType)
@@ -156,8 +166,20 @@ def test_detector_refuses_what_is_not_ported(preset):
                                   vocabulary_type=LoopDetectorVocabularyType.PRETRAINED)
     else:
         cfg = LoopDetectorConfigs.get(preset)
-    with pytest.raises(NotImplementedError):
-        LoopDetector(cfg, device="cpu")
+    if preset not in ("COSPLACE", "EIGENPLACES"):
+        with pytest.raises(NotImplementedError):
+            LoopDetector(cfg, device="cpu")
+        return
+    saved = Parameters.kRetainImageForVPR
+    try:
+        det = LoopDetector(cfg, device="cpu")
+        assert det.score_based and det.netvlad.trained and Parameters.kRetainImageForVPR
+    finally:
+        Parameters.kRetainImageForVPR = saved
+    img = np.random.default_rng(0).uniform(0, 255, (60, 80)).astype(np.uint8)
+    words, g = det.describe_frame(SimpleNamespace(img_vpr=img, img_thumb=None))
+    assert words is None and g.shape == (det.netvlad.out_dim,)
+    assert abs(np.linalg.norm(g) - 1.0) < 1e-5
 
 
 @pytest.mark.parametrize("preset", ["DBOW2", "DBOW3", "DBOW3_INDEPENDENT", "IBOW"])
@@ -257,11 +279,34 @@ def test_weight_free_preset_builds(name):
 
 @pytest.mark.parametrize("name", [n for n in _presets() if n not in _weight_free()])
 def test_learned_preset_refused(name):
-    """The learned presets name the slice that brings them."""
-    from pyslam_tpu_torch.features.tracker import feature_tracker_factory
+    """The learned presets that are not ported name the slice that brings
+    them.  The ported ones (``PORTED_PRESETS``: SUPERPOINT, LIGHTGLUE)
+    build on the CPU through the factory with trained weights, and match a
+    frame to a shifted copy of itself once."""
+    import numpy as np
 
-    with pytest.raises(ValueError, match="learned-model slice"):
-        feature_tracker_factory(name, device="cpu")
+    from pyslam_tpu_torch.features.tracker import PORTED_PRESETS, feature_tracker_factory
+
+    if name not in PORTED_PRESETS:
+        with pytest.raises(ValueError, match="learned-model slice"):
+            feature_tracker_factory(name, device="cpu")
+        return
+    tracker = feature_tracker_factory(name, device="cpu")
+    assert tracker.device.type == "cpu" and tracker.extractor.trained
+    assert tracker.norm.name == "L2"
+    glue = getattr(tracker.matcher, "glue", None)
+    assert (glue is not None) == (name == "LIGHTGLUE") and (glue is None or glue.trained)
+    r = np.random.default_rng(0)
+    img = np.full((120, 160), 60.0, np.float32)
+    for _ in range(30):
+        y, x = r.integers(8, 100), r.integers(8, 140)
+        img[y:y + 12, x:x + 12] = r.uniform(120, 250)
+    f1 = tracker.detectAndCompute(img)
+    f2 = tracker.detectAndCompute(np.roll(img, 2, axis=1))
+    assert f1.desc.shape == (tracker.num_features, 256) and f1.desc.device.type == "cpu"
+    i1, i2 = tracker.match(f1, f2)
+    assert isinstance(i1, np.ndarray) and len(i1) == len(i2)
+    assert (i2 < tracker.num_features).all()
 
 
 def test_tracker_config_json_round_trip():

@@ -128,9 +128,24 @@ def test_feature_matcher(seed, mtype, norm):
 
 
 def test_lightglue_waits_for_the_learned_slice():
-    with pytest.raises(NotImplementedError, match="learned-model slice"):
-        tmatcher.feature_matcher_factory(norm=NormType.L2,
-                                         matcher_type=tmatcher.FeatureMatcherTypes.LIGHTGLUE)
+    """The learned-model slice brought LightGlue: the factory builds it on
+    the CPU with the bundled weights, and it matches a set of keypoints to
+    a shifted copy of itself (tests/test_torch_lightglue.py holds it to the
+    JAX package)."""
+    from types import SimpleNamespace
+
+    m = tmatcher.feature_matcher_factory(norm=NormType.L2,
+                                         matcher_type=tmatcher.FeatureMatcherTypes.LIGHTGLUE,
+                                         device="cpu")
+    assert isinstance(m, tmatcher.LightGlueFeatureMatcher) and m.glue.trained
+    r = rng(0)
+    desc = _float_desc(r, 64, 256)
+    xy = r.uniform(0, 400, (64, 2)).astype(np.float32)
+    f1 = SimpleNamespace(desc=t(desc), xy=t(xy), valid=t(np.ones(64, bool)))
+    f2 = SimpleNamespace(desc=t(desc), xy=t(xy + 3.0), valid=t(np.ones(64, bool)))
+    idx, conf = m.match_features(f1, f2)
+    assert idx.shape == (64,) and conf.shape == (64,) and idx.device.type == "cpu"
+    assert bool(torch.isfinite(conf).all())
 
 
 def test_matcher_defaults_follow_parameters():

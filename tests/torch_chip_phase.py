@@ -1,8 +1,9 @@
 """One phase of chip_smoke.py on the card, alone: 8 (bench.py's loop stage),
-12 (the weight-free feature presets) or 13 (main_slam on a KITTI sequence
-written to disk, then the saved state reloaded).
+12 (the weight-free feature presets), 13 (main_slam on a KITTI sequence
+written to disk, then the saved state reloaded) or 14 (the learned models:
+the SuperPoint session, the LightGlue VO and the COSPLACE loop stage).
 
-    PYTHONPATH=. python3 tests/torch_chip_phase.py 8|12|13
+    PYTHONPATH=. python3 tests/torch_chip_phase.py 8|12|13|14
 
 Builds the kernels, renders the phase's frames as chip_smoke.py does and
 runs its function for the phase; prints what the phase prints.  Run from
@@ -48,8 +49,30 @@ def main():
         t0 = time.time()
         print(json.dumps({"features": cs.features_phase(dev, frames, cam, ds)}, default=float),
               flush=True)
+    elif phase == 14:
+        from pyslam_tpu_torch.config_parameters import Parameters
+
+        cam = PinholeCamera(ds.w, ds.h, ds.fx, ds.fy, ds.cx, ds.cy, fps=ds.fps,
+                            bf=ds.fx * ds.baseline, depth_threshold=35.0)
+        cam_mono = PinholeCamera(ds.w, ds.h, ds.fx, ds.fy, ds.cx, ds.cy, fps=ds.fps,
+                                 depth_threshold=35.0)
+        frames = [(ds.getImage(i), ds.getImageRight(i), ds.getTimestamp(i))
+                  for i in range(cs.N_FRAMES)]
+        rgbd_frames = cs.render(cs.render_rgbd_frames, cs.N_FRAMES)
+        loop_frames = cs.render(cs.render_loop_frames, cs.LOOP_FRAMES)
+        t0 = time.time()
+        models = {"superpoint": cs.superpoint_phase(dev, frames, cam, ds),
+                  "lightglue_vo": cs.lightglue_vo_phase(dev, rgbd_frames, cam_mono,
+                                                        cs.bench_stream("RGBD"))}
+        retain = Parameters.kRetainImageForVPR
+        try:
+            models["cosplace"] = cs.loop_phase(dev, (ds.w, ds.h, ds.fx, ds.fy, ds.cx, ds.cy),
+                                               loop_frames, loop="COSPLACE")
+        finally:
+            Parameters.kRetainImageForVPR = retain
+        print(json.dumps({"models": models}, default=float), flush=True)
     else:
-        raise SystemExit(f"phase {phase}: only 8, 12 and 13 run alone")
+        raise SystemExit(f"phase {phase}: only 8, 12, 13 and 14 run alone")
     print(f"phase {phase}: {time.time() - t0:.1f} s", flush=True)
 
 

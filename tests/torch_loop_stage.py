@@ -1,18 +1,20 @@
 """bench.py's loop stage on the CPU, in the JAX package or in the port.
 
     python -m tests.torch_loop_stage [--package jax|port] [--frames 150] [--trace]
+                                     [--loop DBOW3|COSPLACE|...]
 
 Runs chip_smoke.py's phase 8 configuration (bench.py:193-267: 150 frames of
 the 376x1241 stereo circle, period 130, a 16000-point world of extent 30 m,
-2000 ORB2 features on 8 levels, depth threshold 35, the DBOW3 detector) one
-frame at a time with next-frame prefetch, the JAX package with x64 off as it
-runs outside the tests.  Prints each frame whose tracking fails or that is
+2000 ORB2 features on 8 levels, depth threshold 35, the DBOW3 detector, or
+the ``--loop`` detector: COSPLACE for phase 14c) one frame at a time with
+next-frame prefetch, the JAX package with x64 off as it runs outside the
+tests.  Prints each frame whose tracking fails or that is
 relocalised, each loop closure with the ATE of the trajectory so far just
 before and after its correction, and at the end the frames tracked, loops
 closed, GBAs applied and the final ATE.  With ``--trace`` it also prints,
 from the loop closure on, each local BA applied: the largest keyframe
 translation it made and the observations before and after it.  A witness
-for the port's phase 8: it tells a property of the reference from a fault
+for the port's phases 8 and 14c: it tells a property of the reference from a fault
 of the port.
 """
 
@@ -29,6 +31,7 @@ def main():
     ap.add_argument("--package", choices=("jax", "port"), default="jax")
     ap.add_argument("--frames", type=int, default=chip_smoke.LOOP_FRAMES)
     ap.add_argument("--trace", action="store_true")
+    ap.add_argument("--loop", default="DBOW3")
     args = ap.parse_args()
     if args.package == "jax":
         import jax
@@ -55,7 +58,7 @@ def main():
                         bf=ds.fx * ds.baseline, depth_threshold=35.0)
     slam = Slam(cam, FeatureTrackerConfig(num_features=chip_smoke.N_FEATURES,
                                           num_levels=chip_smoke.N_LEVELS),
-                loop_detector_config="DBOW3", sensor_type=SensorType.STEREO, **kw)
+                loop_detector_config=args.loop, sensor_type=SensorType.STEREO, **kw)
     lc = slam.loop_closing
 
     def ate():
@@ -107,7 +110,7 @@ def main():
                   f"{time.perf_counter() - t0:.0f} s", flush=True)
         cur = nxt
     slam.finish()
-    print(f"{args.package}: {len(slam.tracking.history.timestamps)}/{n} tracked, "
+    print(f"{args.package} loop={args.loop}: {len(slam.tracking.history.timestamps)}/{n} tracked, "
           f"{lc.num_loops_closed} loops closed, {slam.GBA.runs_completed} GBA applied, "
           f"{slam.map.num_keyframes()} keyframes, ATE {ate():.4f} m "
           f"({time.perf_counter() - t0:.0f} s)", flush=True)

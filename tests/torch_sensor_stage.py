@@ -1,8 +1,8 @@
-"""chip_smoke.py's RGBD, monocular or stereo stage, in the JAX package (on
-the CPU) or in the port.
+"""chip_smoke.py's RGBD, monocular or stereo stage, or its monocular visual
+odometry, in the JAX package (on the CPU) or in the port.
 
     python -m tests.torch_sensor_stage [--package jax|port]
-                                       [--sensor mono|rgbd|stereo]
+                                       [--sensor mono|rgbd|stereo|vo]
                                        [--preset ORB2] [--loop DBOW3_INDEPENDENT]
                                        [--frames 60] [--device cpu|cuda]
 
@@ -16,9 +16,12 @@ tests, the port on ``--device`` (the CPU by default).  The tracker is
 ``--loop`` detector if one is named (none by default).  Prints each frame
 not tracked, each reset, the frame at which the map was initialised, and at
 the end the frames tracked, the resets, the keyframes and the ATE (after a
-similarity alignment for the monocular sensor).  The witness that sets
-phase 10's initialisation margin and phase 12's tracked frames and ATE
-ceilings.
+similarity alignment for the monocular sensor).  ``--sensor vo`` runs
+``VisualOdometry`` with the preset's tracker on the monocular stream (the
+ground truth's scale, as phase 11) and prints its frames, matches of the
+last frame and ATE.  The witness that sets phase 10's initialisation
+margin, phase 12's and 14a's tracked frames and ATE ceilings and 14b's ATE
+ceiling.
 """
 
 import argparse
@@ -32,7 +35,7 @@ import chip_smoke
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--package", choices=("jax", "port"), default="jax")
-    ap.add_argument("--sensor", choices=("mono", "rgbd", "stereo"), default="mono")
+    ap.add_argument("--sensor", choices=("mono", "rgbd", "stereo", "vo"), default="mono")
     ap.add_argument("--preset", default="ORB2")
     ap.add_argument("--loop", default=None)
     ap.add_argument("--frames", type=int, default=chip_smoke.N_FRAMES)
@@ -43,18 +46,42 @@ def main():
 
         jax.config.update("jax_platforms", "cpu")
         from pyslam_tpu.evaluation.metrics import eval_ate
-        from pyslam_tpu.features.tracker import FeatureTrackerConfig
+        from pyslam_tpu.features.tracker import FeatureTrackerConfig, feature_tracker_factory
         from pyslam_tpu.io.dataset_types import SensorType
+        from pyslam_tpu.io.ground_truth import groundtruth_factory
         from pyslam_tpu.slam.camera import PinholeCamera
         from pyslam_tpu.slam.slam import Slam
+        from pyslam_tpu.slam.visual_odometry import VisualOdometry
         kw = {}
     else:
         from pyslam_tpu_torch.evaluation.metrics import eval_ate
-        from pyslam_tpu_torch.features.tracker import FeatureTrackerConfig
+        from pyslam_tpu_torch.features.tracker import FeatureTrackerConfig, feature_tracker_factory
         from pyslam_tpu_torch.io.dataset_types import SensorType
+        from pyslam_tpu_torch.io.ground_truth import groundtruth_factory
         from pyslam_tpu_torch.slam.camera import PinholeCamera
         from pyslam_tpu_torch.slam.slam import Slam
+        from pyslam_tpu_torch.slam.visual_odometry import VisualOdometry
         kw = {"device": args.device}
+    if args.sensor == "vo":
+        # phase 11's stream: the RGBD rendering's left images, mono camera
+        ds = chip_smoke.bench_stream("RGBD")
+        n = args.frames
+        cam = PinholeCamera(ds.w, ds.h, ds.fx, ds.fy, ds.cx, ds.cy, fps=ds.fps,
+                            depth_threshold=35.0)
+        gt = groundtruth_factory({"type": "synthetic", "dataset": ds})
+        vo = VisualOdometry(cam, feature_tracker_factory(args.preset, **kw), groundtruth=gt)
+        t0 = time.perf_counter()
+        for i in range(n):
+            vo.track(ds.getImage(i), i, ds.getTimestamp(i))
+            if i % 10 == 0:
+                print(f"frame {i}: {vo.num_matches} matches, {vo.num_inliers} inliers, "
+                      f"{time.perf_counter() - t0:.0f} s", flush=True)
+        ate = float(eval_ate(np.asarray(vo.timestamps), vo.trajectory, gt.timestamps,
+                             gt.positions[:n], align=True, with_scale=False).rmse)
+        print(f"{args.package} vo {args.preset}: {len(vo.timestamps)}/{n} frames, "
+              f"{vo.num_matches} matches on the last, ATE {ate:.4f} m "
+              f"({time.perf_counter() - t0:.0f} s)", flush=True)
+        return
     mono = args.sensor == "mono"
     sensor = {"mono": "MONOCULAR", "rgbd": "RGBD", "stereo": "STEREO"}[args.sensor]
     ds = chip_smoke.bench_stream(sensor)
