@@ -235,26 +235,22 @@ class BeblidDescriptor:
                              torch.as_tensor(sizes, device=xys.device))
 
 
-class BinaryDescribedExtractor:
-    """Detector + BRISK/FREAK/BEBLID descriptor replacement (reference
-    presets BRISK / ORB2_FREAK / ORB2_BEBLID), on the detector's device.
+class DescribedExtractor:
+    """A detector whose descriptors a second stage replaces (``_describe``),
+    on the detector's device.
 
-    A stereo pair (``extract_stereo``) is detected as one batch of two
-    images, so a frame costs one launch of the FAST kernel, then each image
-    is described and the pair is row-matched with the Hamming distance.
-    The reference has no fused path for these presets: it detects and
-    describes each image and row-matches them with its matcher's distance
+    A stereo pair (``extract_stereo``) of the ORB2 detector is detected as
+    one batch of two images, so a frame costs one launch of the FAST kernel,
+    then each image is described and the pair is row-matched with the
+    descriptors' distance (Hamming for bits, L2 for floats).  The reference
+    has no fused path for these presets: it detects and describes each image
+    and row-matches them with its matcher's distance
     (``Frame.compute_stereo_matches``), which gives the same keypoints,
-    descriptors and matches."""
+    descriptors and matches.  Another detector extracts the two images
+    apart, as the reference."""
 
-    def __init__(self, base, kind: str):
+    def __init__(self, base):
         self.base = base
-        if kind in ("BRISK", "FREAK"):
-            self.descriptor = PatternBinaryDescriptor(kind)
-        elif kind == "BEBLID":
-            self.descriptor = BeblidDescriptor()
-        else:
-            raise ValueError(kind)
         self.num_features = base.num_features
         self.device = base.device
         self.scale_factors = base.scale_factors
@@ -262,10 +258,7 @@ class BinaryDescribedExtractor:
         self.inv_sigma2 = base.inv_sigma2
 
     def _describe(self, img: torch.Tensor, fd: FeatureData) -> FeatureData:
-        des = self.descriptor.describe(img, fd.xy, fd.size)
-        if isinstance(des, tuple):
-            des = des[0]
-        return fd._replace(desc=des)
+        raise NotImplementedError
 
     def __call__(self, img):
         fd = self.base(img)
@@ -285,3 +278,23 @@ class BinaryDescribedExtractor:
             fl, fr = self(img_l), self(img_r)
         ur, depth = stereo_match(fl, fr, bf, max_disp, max_distance, row_tol)
         return fl, ur, depth
+
+
+class BinaryDescribedExtractor(DescribedExtractor):
+    """Detector + BRISK/FREAK/BEBLID descriptor replacement (reference
+    presets BRISK / ORB2_FREAK / ORB2_BEBLID)."""
+
+    def __init__(self, base, kind: str):
+        super().__init__(base)
+        if kind in ("BRISK", "FREAK"):
+            self.descriptor = PatternBinaryDescriptor(kind)
+        elif kind == "BEBLID":
+            self.descriptor = BeblidDescriptor()
+        else:
+            raise ValueError(kind)
+
+    def _describe(self, img: torch.Tensor, fd: FeatureData) -> FeatureData:
+        des = self.descriptor.describe(img, fd.xy, fd.size)
+        if isinstance(des, tuple):
+            des = des[0]
+        return fd._replace(desc=des)

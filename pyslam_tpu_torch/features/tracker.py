@@ -6,21 +6,28 @@ FAST_ORB (FAST + rBRIEF), BRISK / ORB2_FREAK / ORB2_BEBLID (the ORB2
 detector re-described with 512-bit patterns), SURF, KAZE, AKAZE, SIFT and
 ROOT_SIFT (cv2 on the host), and the Lucas-Kanade trackers LK_FAST and
 LK_SHI_TOMASI (``LkFeatureTracker.track_lk``).  Of the learned presets,
-SUPERPOINT (``models.superpoint``, L2 brute-force matching) and LIGHTGLUE
-(SuperPoint keypoints matched by ``models.lightglue``) run with the JAX
-package's bundled weights; the others (the patch-descriptor networks,
-LightGlue on other descriptors, XFeat, MASt3R, LoFTR and the rest) raise
-``ValueError``: they come with later parts of the learned-model slice.
+SUPERPOINT and LIGHTGLUE run with the JAX package's bundled weights; the
+learned local features (XFeat, DISK, ALIKED, R2D2, D2-Net, Key.Net,
+LF-Net, DELF, the patch descriptors HardNet / SOSNet / L2Net / TFeat /
+GeoDesc / LogPolar over ORB2 or Shi-Tomasi keypoints, ContextDesc over
+SIFT's) and LightGlue on their 64- or 128-d descriptors run with seeded
+random weights (``trained = False``) until official checkpoints are
+given (``extra["checkpoint"]``, ``"descriptor_checkpoint"``,
+``"matcher_checkpoint"``).  The dense two-view matchers LOFTR and MAST3R
+raise ``ValueError``: they come with the next part of the learned-model
+slice.
 """
 
 from __future__ import annotations
 
 import enum
+import importlib
 from dataclasses import dataclass, field
 
 import numpy as np
 import torch
 
+from pyslam_tpu_torch.features.binary_descriptors import DescribedExtractor
 from pyslam_tpu_torch.features.matcher import (
     FeatureMatcher,
     FeatureMatcherTypes,
@@ -35,8 +42,8 @@ from pyslam_tpu_torch.features.types import (
     NormType,
 )
 
-LEARNED_SLICE = ("a later part of the learned-model slice (ROADMAP item 3, learned models "
-                 "with bundled weights)")
+DENSE_SLICE = ("the next part of the learned-model slice (ROADMAP item 3.1: the dense "
+               "matchers LOFTR, then MAST3R with DUSt3R)")
 
 
 class FeatureTrackerTypes(enum.Enum):
@@ -164,19 +171,42 @@ class FeatureTrackerConfigs:
 WEIGHT_FREE_PRESETS = ("ORB2", "ORB2_BF", "ORB", "FAST_ORB", "LK_FAST", "LK_SHI_TOMASI",
                        "SIFT", "ROOT_SIFT", "SURF", "KAZE", "AKAZE", "BRISK", "ORB2_FREAK",
                        "ORB2_BEBLID")
-# every preset the port runs: the weight-free ones and the learned ones
-# whose weights the JAX package bundles
-PORTED_PRESETS = WEIGHT_FREE_PRESETS + ("SUPERPOINT", "LIGHTGLUE")
+# the learned local features: the weights the JAX package bundles
+# (SUPERPOINT, LIGHTGLUE) or seeded random ones
+LEARNED_PRESETS = ("SUPERPOINT", "LIGHTGLUE", "XFEAT", "XFEAT_LIGHTGLUE", "DISK",
+                   "LIGHTGLUE_DISK", "ALIKED", "LIGHTGLUE_ALIKED", "LIGHTGLUE_SIFT", "R2D2",
+                   "D2NET", "KEYNET", "KEYNETAFFNETHARDNET", "ORB2_HARDNET", "ORB2_SOSNET",
+                   "ORB2_L2NET", "ORB2_TFEAT", "SHI_TOMASI_HARDNET", "ORB2_GEODESC", "GEODESC",
+                   "LOGPOLAR", "CONTEXTDESC", "LFNET", "DELF")
+# every preset the port runs (all but the dense matchers LOFTR and MAST3R)
+PORTED_PRESETS = WEIGHT_FREE_PRESETS + LEARNED_PRESETS
+
+# detector -> (module of pyslam_tpu_torch.models, extractor class)
+_LEARNED_DETECTORS = {
+    _D.SUPERPOINT: ("superpoint", "SuperPointExtractor"), _D.XFEAT: ("xfeat", "XFeatExtractor"),
+    _D.DISK: ("disk", "DiskExtractor"), _D.ALIKED: ("aliked", "AlikedExtractor"),
+    _D.R2D2: ("r2d2", "R2D2Extractor"), _D.D2NET: ("d2net", "D2NetExtractor"),
+    _D.LFNET: ("lfnet", "LFNetExtractor"), _D.DELF: ("delf", "DELFExtractor")}
+_KEYNET_DESCRIPTORS = ("HARDNET", "SOSNET", "L2NET", "TFEAT")
 
 
-def _learned(config: FeatureTrackerConfig, what: str) -> ValueError:
-    return ValueError(f"feature tracker preset {config.name}: {what} needs learned weights; "
-                      f"it comes with {LEARNED_SLICE}")
+class _StageDescribedExtractor(DescribedExtractor):
+    """Detector + a learned descriptor stage over its keypoints: a patch
+    network over their oriented 32x32 patches, or ContextDesc (one batched
+    gather and one forward a frame)."""
+
+    def __init__(self, base, descriptor):
+        super().__init__(base)
+        self.descriptor = descriptor
+
+    def _describe(self, img: torch.Tensor, fd: FeatureData) -> FeatureData:
+        return fd._replace(desc=self.descriptor.compute(img, fd.xy, fd.size, fd.angle))
 
 
 def _make_extractor(config: FeatureTrackerConfig, device: torch.device):
     """The detector's extractor and the norm of its own descriptor."""
     det = config.detector_type
+    checkpoint = config.extra.get("checkpoint")
     if det in (_D.ORB2, _D.FAST):
         return ORB2Extractor(num_features=config.num_features, num_levels=config.num_levels,
                              scale_factor=config.scale_factor, device=device), NormType.HAMMING
@@ -200,11 +230,19 @@ def _make_extractor(config: FeatureTrackerConfig, device: torch.device):
         return (AkazeExtractor(num_features=config.num_features,
                                descriptor="KAZE" if kaze else "MLDB", device=device),
                 NormType.L2 if kaze else NormType.HAMMING)
-    if det == _D.SUPERPOINT:
-        from pyslam_tpu_torch.models.superpoint import SuperPointExtractor
+    if det in _LEARNED_DETECTORS:
+        module, cls = _LEARNED_DETECTORS[det]
+        extractor = getattr(importlib.import_module(f"pyslam_tpu_torch.models.{module}"), cls)
+        return (extractor(num_features=config.num_features, checkpoint=checkpoint,
+                          device=device), NormType.L2)
+    if det == _D.KEYNET:
+        from pyslam_tpu_torch.models.keynet import KeyNetExtractor
 
-        return SuperPointExtractor(num_features=config.num_features, device=device), NormType.L2
-    raise _learned(config, f"the {det.name} detector")
+        desc = config.descriptor_type.name
+        return (KeyNetExtractor(num_features=config.num_features, checkpoint=checkpoint,
+                                descriptor=desc if desc in _KEYNET_DESCRIPTORS else "HARDNET",
+                                device=device), NormType.L2)
+    raise ValueError(f"feature tracker preset {config.name}: detector {det.name} not supported")
 
 
 class FeatureTracker:
@@ -213,19 +251,32 @@ class FeatureTracker:
 
     def __init__(self, config: FeatureTrackerConfig, *, device: torch.device | str = "cuda"):
         desc = config.descriptor_type
-        if config.tracker_type in (_T.XFEAT, _T.MAST3R, _T.LOFTR):
-            raise _learned(config, f"the {config.tracker_type.name} matcher")
-        if config.tracker_type == _T.LIGHTGLUE and desc != _S.SUPERPOINT:
-            raise _learned(config, f"the LIGHTGLUE matcher on {desc.name} descriptors")
-        if desc in PATCH_DESCRIPTOR_TYPES or desc == _S.CONTEXTDESC:
-            raise _learned(config, f"the {desc.name} descriptor")
+        if config.tracker_type in (_T.MAST3R, _T.LOFTR):
+            raise ValueError(f"feature tracker preset {config.name}: the "
+                             f"{config.tracker_type.name} two-view matcher comes with "
+                             f"{DENSE_SLICE}")
         self.config = config
         self.device = torch.device(device)
         self.num_features = config.num_features
         self.num_levels = config.num_levels
         self.scale_factor = config.scale_factor
         self.extractor, self.norm = _make_extractor(config, self.device)
-        if desc in (_S.BRISK, _S.FREAK, _S.BEBLID):
+        extra = config.extra
+        stage_ckpt = extra.get("descriptor_checkpoint")
+        if desc in PATCH_DESCRIPTOR_TYPES and config.detector_type != _D.KEYNET:
+            # (Key.Net computes its patch descriptors itself)
+            from pyslam_tpu_torch.models.patch_descriptors import PatchDescriptorExtractor
+
+            self.extractor = _StageDescribedExtractor(self.extractor, PatchDescriptorExtractor(
+                desc.name, checkpoint=stage_ckpt, device=self.device))
+            self.norm = NormType.L2
+        elif desc == _S.CONTEXTDESC:
+            from pyslam_tpu_torch.models.contextdesc import ContextDescExtractor
+
+            self.extractor = _StageDescribedExtractor(self.extractor, ContextDescExtractor(
+                checkpoint=stage_ckpt, device=self.device))
+            self.norm = NormType.L2
+        elif desc in (_S.BRISK, _S.FREAK, _S.BEBLID):
             from pyslam_tpu_torch.features.binary_descriptors import BinaryDescribedExtractor
 
             self.extractor = BinaryDescribedExtractor(self.extractor, desc.name)
@@ -234,8 +285,8 @@ class FeatureTracker:
         if config.tracker_type == _T.LIGHTGLUE:
             self.matcher: FeatureMatcher = feature_matcher_factory(
                 norm=self.norm, matcher_type=FeatureMatcherTypes.LIGHTGLUE,
-                input_dim=int(config.extra.get("desc_dim", 256)),
-                checkpoint=config.extra.get("matcher_checkpoint"), device=self.device)
+                input_dim=int(extra.get("desc_dim", 256)),
+                checkpoint=extra.get("matcher_checkpoint"), device=self.device)
         else:
             mtype = (FeatureMatcherTypes.NN if config.tracker_type == _T.DES_NN
                      else FeatureMatcherTypes.BF)
@@ -245,6 +296,15 @@ class FeatureTracker:
         self.scale_factors = self.extractor.scale_factors
         self.sigma2 = self.extractor.sigma2
         self.inv_sigma2 = 1.0 / self.sigma2
+
+    @property
+    def trained(self) -> bool:
+        """Whether every learned part (detector, descriptor stage, matcher
+        network) holds trained weights; True for a weight-free preset."""
+        ex = self.extractor
+        parts = (ex, getattr(ex, "base", None), getattr(ex, "descriptor", None),
+                 getattr(self.matcher, "glue", None))
+        return all(p.trained for p in parts if hasattr(p, "trained"))
 
     def detectAndCompute(self, img) -> FeatureData:
         """One (H, W) image -> FeatureData on ``device``."""

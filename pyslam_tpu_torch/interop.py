@@ -11,13 +11,19 @@ from the arrays of the JAX package's table (``TSDFVolume.load`` reads its
 ``.npz`` through it).
 
 The learned models' weights: ``superpoint_state_dict``,
-``lightglue_state_dict``, ``resnet_state_dict`` and
-``cosplace_state_dict`` take the JAX package's flat parameters (the
-``params/...`` keys of its ``.npz`` checkpoints, numpy arrays) and return
-the port's ``state_dict``: a flax convolution kernel (kh, kw, I, O) becomes
-(O, I, kh, kw), a Dense kernel (in, out) an ``nn.Linear`` weight (out,
-in), a LayerNorm ``scale`` its ``weight``; batch-norm statistics,
-``rotary_w`` and ``gem_p`` keep their values.  ``bundled_checkpoint``
+``lightglue_state_dict``, ``resnet_state_dict``, ``cosplace_state_dict``
+and the local features' ``hardnet_state_dict`` (HardNet, L2Net, SOSNet,
+the log-polar net), ``tfeat_state_dict``, ``xfeat_state_dict``,
+``aliked_state_dict``, ``r2d2_state_dict`` and ``same_names_state_dict``
+(GeoDesc, DISK, D2-Net, Key.Net, LF-Net, DELF, ContextDesc) take the JAX
+package's flat parameters (the ``params/...`` keys of its ``.npz``
+checkpoints, numpy arrays, as ``pyslam_tpu/models/torch_convert.py``
+flattens them) and return the port's ``state_dict``: a flax convolution
+kernel (kh, kw, I, O) becomes (O, I, kh, kw), a Dense kernel (in, out) an
+``nn.Linear`` weight (out, in) (a Dense over k*k taps a conv weight), a
+LayerNorm ``scale`` its ``weight``, a flax module path the official
+module's name where the port keeps an official layout; batch-norm
+statistics, ``rotary_w`` and ``gem_p`` keep their values.  ``bundled_checkpoint``
 finds the JAX package's bundled checkpoints by path (a data file, not an
 import); ``seeded_init_`` draws the random weights a model falls back to
 without one.
@@ -80,7 +86,7 @@ def read_npz(path: str) -> dict[str, np.ndarray]:
 
 
 def _leaf(kind: str, v: np.ndarray) -> torch.Tensor:
-    v = np.asarray(v, np.float32)
+    v = np.array(v, np.float32)
     if kind == "kernel":
         v = v.transpose(3, 2, 0, 1) if v.ndim == 4 else v.T
     return torch.from_numpy(np.ascontiguousarray(v))
@@ -130,6 +136,107 @@ def resnet_state_dict(flat: dict) -> dict[str, torch.Tensor]:
 def cosplace_state_dict(flat: dict) -> dict[str, torch.Tensor]:
     """``GeoLocalizationNet`` weights: ``backbone``, ``gem_p`` and ``fc``."""
     return _convert(flat, _resnet_module)
+
+
+def _renamed(flat: dict, names: dict) -> dict[str, torch.Tensor]:
+    """state_dict from the ``params/`` leaves of ``flat`` whose flax module
+    path (slash-joined) ``names`` maps to a torch module name; the other
+    module paths keep their names with dots."""
+    return _convert(flat, lambda p: names.get("/".join(p), ".".join(p)))
+
+
+def _indexed(src: str, dst: str, idx) -> dict[str, str]:
+    """flax ``{src}conv{j}`` / ``{src}bn{j}`` -> the official Sequential's
+    ``{dst}.{idx[j]}`` and ``{dst}.{idx[j] + 1}``."""
+    out = {}
+    for j, i in enumerate(idx):
+        out[f"{src}conv{j}"] = f"{dst}.{i}"
+        out[f"{src}bn{j}"] = f"{dst}.{i + 1}"
+    return out
+
+
+# the convolutions' indices in the official Sequentials
+HARDNET_CONV_IDX = (0, 3, 6, 9, 12, 15, 19)
+R2D2_CONV_IDX = (0, 3, 6, 9, 12, 15, 18, 20, 22)
+XFEAT_BASIC_LAYERS = (
+    "block1.0", "block1.1", "block1.2", "block1.3", "block2.0", "block2.1",
+    "block3.0", "block3.1", "block3.2", "block4.0", "block4.1", "block4.2",
+    "block5.0", "block5.1", "block5.2", "block5.3", "block_fusion.0", "block_fusion.1",
+    "heatmap_head.0", "heatmap_head.1", "keypoint_head.0", "keypoint_head.1",
+    "keypoint_head.2")
+XFEAT_PLAIN_CONVS = {"skip1_conv": "skip1.1", "fusion_conv": "block_fusion.2",
+                     "heatmap_conv": "heatmap_head.2", "keypoint_conv": "keypoint_head.3"}
+
+
+def hardnet_state_dict(flat: dict) -> dict[str, torch.Tensor]:
+    """HardNet / L2Net / SOSNet / LogPolarDesc weights: flax
+    ``features/conv{j}``, ``features/bn{j}`` -> the ``features``
+    Sequential's indices."""
+    return _renamed(flat, _indexed("features/", "features", HARDNET_CONV_IDX))
+
+
+def tfeat_state_dict(flat: dict) -> dict[str, torch.Tensor]:
+    """TFeat: ``conv0``, ``conv1``, ``fc`` -> ``features.1``,
+    ``features.4``, ``classifier.0``."""
+    return _renamed(flat, {"conv0": "features.1", "conv1": "features.4",
+                           "fc": "classifier.0"})
+
+
+def same_names_state_dict(flat: dict) -> dict[str, torch.Tensor]:
+    """The weights of a model whose modules carry the flax names (GeoDesc,
+    DISK, D2-Net, Key.Net, LF-Net, DELF, ContextDesc's towers)."""
+    return _convert(flat, ".".join)
+
+
+def xfeat_state_dict(flat: dict) -> dict[str, torch.Tensor]:
+    """``XFeatNet`` weights (the public XFeatModel's names) from flax
+    ``BasicLayer_{i}`` (conv ``Conv_0``, running statistics in
+    ``batch_stats/.../BatchNorm_0``) and the four plain convolutions."""
+    names = {f"BasicLayer_{i}/Conv_0": f"{pre}.layer.0"
+             for i, pre in enumerate(XFEAT_BASIC_LAYERS)}
+    names.update(XFEAT_PLAIN_CONVS)
+    out = _renamed(flat, names)
+    for i, pre in enumerate(XFEAT_BASIC_LAYERS):
+        for leaf, name in (("mean", "running_mean"), ("var", "running_var")):
+            out[f"{pre}.layer.1.{name}"] = _leaf(
+                leaf, flat[f"batch_stats/BasicLayer_{i}/BatchNorm_0/{leaf}"])
+    return out
+
+
+def _dense_to_conv(kernel: np.ndarray, k: int) -> torch.Tensor:
+    """A Dense kernel over k*k taps (tap-major, channel-minor; (k*k*C, O))
+    -> a conv weight (O, C, k, k)."""
+    kernel = np.asarray(kernel, np.float32)
+    c = kernel.shape[0] // (k * k)
+    return torch.from_numpy(np.ascontiguousarray(
+        kernel.reshape(k, k, c, kernel.shape[1]).transpose(3, 2, 0, 1)))
+
+
+def aliked_state_dict(net_flat: dict, head_flat: dict, K: int = 3) -> dict[str, torch.Tensor]:
+    """``AlikedNet`` weights (the official ALIKED names) from the JAX
+    package's ``AlikedNet`` and ``SDDH`` trees: the deformable convs' and
+    the offset head's Dense kernels become conv weights."""
+    names = {"score0": "score_head.0", "score1": "score_head.2", "score2": "score_head.4",
+             "score3": "score_head.6"}
+    out = _renamed(net_flat, names)
+    for blk in ("block3", "block4"):
+        for c in ("conv1", "conv2"):
+            out[f"{blk}.{c}.conv.weight"] = _dense_to_conv(
+                net_flat[f"params/{blk}/{c}/conv/kernel"], 3)
+    out.update({f"desc_head.{k}": v for k, v in _renamed(head_flat, {
+        "offset_conv0": "offset_conv.0", "offset_conv1": "offset_conv.2"}).items()})
+    out["desc_head.offset_conv.0.weight"] = _dense_to_conv(
+        head_flat["params/offset_conv0/kernel"], K)
+    for name in ("offset_conv.2", "sf_conv"):               # 1x1 convs
+        w = out[f"desc_head.{name}.weight"]
+        out[f"desc_head.{name}.weight"] = w[:, :, None, None].contiguous()
+    return out
+
+
+def r2d2_state_dict(flat: dict) -> dict[str, torch.Tensor]:
+    """``R2D2Net`` weights: flax ``conv{j}`` / ``bn{j}`` -> the official
+    ``ops`` list's indices; ``clf`` and ``sal`` keep their names."""
+    return _renamed(flat, _indexed("", "ops", R2D2_CONV_IDX))
 
 
 def seeded_init_(module: torch.nn.Module, seed: int) -> torch.nn.Module:

@@ -4,6 +4,10 @@ runs through ``main_slam`` (8 frames of tests/test_torch_entry_points.py's
 KITTI sequence, 600 SuperPoint keypoints), and ``main_vo --features
 LIGHTGLUE`` runs the LightGlue visual odometry on its left images.
 
+A config.yaml naming DISK (seeded random weights) also runs through
+``main_slam``, and ``main_vo --features XFEAT_LIGHTGLUE`` runs LightGlue on
+XFeat's 64-d descriptors.
+
 Held: the exit codes; the session's tracker and detector are the named
 ones with trained weights (SuperPoint float descriptors, the COSPLACE
 detector score-based); the saved state's keyframe database holds one
@@ -81,5 +85,45 @@ def test_main_vo_lightglue(sequence, tmp_path, monkeypatch):
     tracker = vos[0].tracker
     assert tracker.config.name == "LIGHTGLUE" and tracker.num_features == 300
     assert tracker.matcher.glue.trained and tracker.extractor.trained
+    est = read_tum_trajectory(traj)
+    assert len(est) == N_FRAMES and np.isfinite(est.Twc).all()
+
+
+def test_main_slam_disk(tmp_path, monkeypatch):
+    """A config.yaml naming DISK resolves and runs through ``main_slam``
+    (600 keypoints, 128-d float descriptors, random weights)."""
+    root = str(tmp_path)
+    cfg = write_kitti(root, features="DISK", loop="DBOW3", n_frames=4)
+    sessions = []
+    slam_cls = main_slam.Slam
+
+    def recording_slam(*args, **kw):
+        sessions.append(slam_cls(*args, **kw))
+        return sessions[-1]
+
+    monkeypatch.setattr(main_slam, "Slam", recording_slam)
+    traj = f"{root}/traj.txt"
+    assert main_slam.main(["--config", cfg, "--save_trajectory", traj, "--device", "cpu"]) == 0
+    tracker = sessions[0].feature_tracker
+    assert tracker.config.name == "DISK" and not tracker.trained
+    assert tracker.num_features == 600 and sessions[0].map.points.desc.shape[1] == 128
+
+
+def test_main_vo_xfeat_lightglue(sequence, tmp_path, monkeypatch):
+    _, cfg = sequence
+    vos = []
+    vo_cls = main_vo.VisualOdometry
+
+    def recording_vo(*args, **kw):
+        vos.append(vo_cls(*args, **kw))
+        return vos[-1]
+
+    monkeypatch.setattr(main_vo, "VisualOdometry", recording_vo)
+    traj = str(tmp_path / "vo.txt")
+    assert main_vo.main(["--config", cfg, "--features", "XFEAT_LIGHTGLUE", "--num_features",
+                         "300", "--save_trajectory", traj, "--device", "cpu"]) == 0
+    tracker = vos[0].tracker
+    assert tracker.config.name == "XFEAT_LIGHTGLUE" and tracker.num_features == 300
+    assert tracker.matcher.glue.net.input_dim == 64 and not tracker.trained
     est = read_tum_trajectory(traj)
     assert len(est) == N_FRAMES and np.isfinite(est.Twc).all()

@@ -279,23 +279,37 @@ def test_weight_free_preset_builds(name):
 
 @pytest.mark.parametrize("name", [n for n in _presets() if n not in _weight_free()])
 def test_learned_preset_refused(name):
-    """The learned presets that are not ported name the slice that brings
-    them.  The ported ones (``PORTED_PRESETS``: SUPERPOINT, LIGHTGLUE)
-    build on the CPU through the factory with trained weights, and match a
-    frame to a shifted copy of itself once."""
-    import numpy as np
+    """The learned presets that are not ported (the dense matchers LOFTR
+    and MAST3R) name the slice that brings them.  The ported ones
+    (``PORTED_PRESETS``) build on the CPU through the factory, with the
+    JAX package's bundled weights (SUPERPOINT, LIGHTGLUE: ``trained``) or
+    seeded random ones (the others: not ``trained``), at 256 keypoint
+    slots, and match a frame to a shifted copy of itself once; the
+    descriptors have the preset's width (``DESCRIPTOR_WIDTH``)."""
+    import dataclasses
 
-    from pyslam_tpu_torch.features.tracker import PORTED_PRESETS, feature_tracker_factory
+    import numpy as np
+    import torch
+
+    from pyslam_tpu_torch.features.tracker import (
+        PORTED_PRESETS,
+        FeatureTrackerConfigs,
+        feature_tracker_factory,
+    )
+    from pyslam_tpu_torch.features.types import DESCRIPTOR_WIDTH
 
     if name not in PORTED_PRESETS:
         with pytest.raises(ValueError, match="learned-model slice"):
             feature_tracker_factory(name, device="cpu")
         return
-    tracker = feature_tracker_factory(name, device="cpu")
-    assert tracker.device.type == "cpu" and tracker.extractor.trained
+    cfg = FeatureTrackerConfigs.get(name)
+    tracker = feature_tracker_factory(dataclasses.replace(cfg, num_features=256),
+                                      device="cpu")
+    assert tracker.device.type == "cpu"
+    assert tracker.trained == (name in ("SUPERPOINT", "LIGHTGLUE"))
     assert tracker.norm.name == "L2"
     glue = getattr(tracker.matcher, "glue", None)
-    assert (glue is not None) == (name == "LIGHTGLUE") and (glue is None or glue.trained)
+    assert (glue is not None) == (cfg.tracker_type.name == "LIGHTGLUE")
     r = np.random.default_rng(0)
     img = np.full((120, 160), 60.0, np.float32)
     for _ in range(30):
@@ -303,7 +317,9 @@ def test_learned_preset_refused(name):
         img[y:y + 12, x:x + 12] = r.uniform(120, 250)
     f1 = tracker.detectAndCompute(img)
     f2 = tracker.detectAndCompute(np.roll(img, 2, axis=1))
-    assert f1.desc.shape == (tracker.num_features, 256) and f1.desc.device.type == "cpu"
+    width = DESCRIPTOR_WIDTH[cfg.descriptor_type]
+    assert f1.desc.shape == (tracker.num_features, width) and f1.desc.device.type == "cpu"
+    assert bool(f1.valid.any()) and bool(torch.isfinite(f1.desc).all())
     i1, i2 = tracker.match(f1, f2)
     assert isinstance(i1, np.ndarray) and len(i1) == len(i2)
     assert (i2 < tracker.num_features).all()

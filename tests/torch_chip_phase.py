@@ -1,9 +1,11 @@
 """One phase of chip_smoke.py on the card, alone: 8 (bench.py's loop stage),
 12 (the weight-free feature presets), 13 (main_slam on a KITTI sequence
-written to disk, then the saved state reloaded) or 14 (the learned models:
-the SuperPoint session, the LightGlue VO and the COSPLACE loop stage).
+written to disk, then the saved state reloaded), 14 (the learned models:
+the SuperPoint session, the LightGlue VO and the COSPLACE loop stage) or 15
+(the learned local features: each model card against CPU and its times,
+the learned presets' stereo sessions and the XFEAT_LIGHTGLUE VO).
 
-    PYTHONPATH=. python3 tests/torch_chip_phase.py 8|12|13|14
+    PYTHONPATH=. python3 tests/torch_chip_phase.py 8|12|13|14|15
 
 Builds the kernels, renders the phase's frames as chip_smoke.py does and
 runs its function for the phase; prints what the phase prints.  Run from
@@ -71,8 +73,23 @@ def main():
         finally:
             Parameters.kRetainImageForVPR = retain
         print(json.dumps({"models": models}, default=float), flush=True)
+    elif phase == 15:
+        cam = PinholeCamera(ds.w, ds.h, ds.fx, ds.fy, ds.cx, ds.cy, fps=ds.fps,
+                            bf=ds.fx * ds.baseline, depth_threshold=35.0)
+        cam_mono = PinholeCamera(ds.w, ds.h, ds.fx, ds.fy, ds.cx, ds.cy, fps=ds.fps,
+                                 depth_threshold=35.0)
+        n = cs.LEARNED_FRAMES
+        frames = [(ds.getImage(i), ds.getImageRight(i), ds.getTimestamp(i)) for i in range(n)]
+        rgbd_frames = cs.render(cs.render_rgbd_frames, n)
+        t0 = time.time()
+        learned = {"models": cs.learned_models_phase(dev, frames),
+                   "sessions": cs.learned_sessions_phase(dev, frames, cam, ds),
+                   "xfeat_lightglue_vo": cs.lightglue_vo_phase(
+                       dev, rgbd_frames, cam_mono, cs.bench_stream("RGBD"),
+                       preset="XFEAT_LIGHTGLUE")}
+        print(json.dumps({"learned": learned}, default=float), flush=True)
     else:
-        raise SystemExit(f"phase {phase}: only 8, 12, 13 and 14 run alone")
+        raise SystemExit(f"phase {phase}: only 8, 12, 13, 14 and 15 run alone")
     print(f"phase {phase}: {time.time() - t0:.1f} s", flush=True)
 
 

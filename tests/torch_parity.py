@@ -3,6 +3,8 @@ package: inputs are made with numpy from a seed, and float32 copies go to
 both sides (the test session runs JAX with x64 on, so a float64 array would
 silently run the reference in float64)."""
 
+import contextlib
+
 import numpy as np
 import torch
 
@@ -77,3 +79,59 @@ class JaxKeySampler:
                                 weights=None if weights is None else jnp.asarray(np_(weights)))
         self.calls += 1
         return torch.from_numpy(np.asarray(s).astype(np.int64)).to(valid.device)
+
+
+def flat_variables(variables) -> dict:
+    """A flax variable tree as the JAX package flattens it for its ``.npz``
+    files (``params/...`` keys, numpy leaves): the input of the
+    ``pyslam_tpu_torch.interop.*_state_dict`` converters."""
+    from pyslam_tpu.models.torch_convert import flatten_tree
+
+    return flatten_tree(dict(variables))
+
+
+def assert_same_features(ref, got, tol: float, xy_tol: float = 0.0, min_valid: int = 1,
+                         min_same: float = 1.0):
+    """FeatureData of the JAX package (``ref``) and of the port (``got``):
+    the same keypoint slots (valid flag, and coordinates exactly or within
+    ``xy_tol`` px) on at least ``min_same`` of them, the others at
+    responses within ``tol`` (near-ties of the score map that float32
+    rounding orders either way); responses and the shared valid slots'
+    descriptors within ``tol``."""
+    valid = np.asarray(ref.valid)
+    assert valid.sum() >= min_valid, valid.sum()
+    same = ((np.abs(np_(got.xy) - np.asarray(ref.xy)).max(1) <= xy_tol)
+            & (np_(got.valid) == valid))
+    assert same.mean() >= min_same, (same.mean(), np.abs(np_(got.xy) - np.asarray(ref.xy)).max())
+    assert np.abs(np_(got.response) - np.asarray(ref.response)).max() <= tol
+    shared = same & valid
+    assert np.abs(np_(got.desc)[shared] - np.asarray(ref.desc)[shared]).max() <= tol
+
+
+def rel_err(got, want) -> float:
+    """max |got - want| over the largest magnitude of ``want``."""
+    got, want = np_(got), np.asarray(want)
+    return float(np.abs(got - want).max() / max(np.abs(want).max(), 1e-30))
+
+
+@contextlib.contextmanager
+def compiled_flax_init():
+    """Build a JAX-package extractor with its flax ``init`` (and the
+    ``apply`` calls of its constructor) compiled by ``jax.jit`` instead of
+    run op by op: the same variables, several times faster to make."""
+    import jax
+    import flax.linen as nn
+
+    orig_init, orig_apply = nn.Module.init, nn.Module.apply
+
+    def init(self, rngs, *args, **kw):
+        return jax.jit(lambda r, *a: orig_init(self, r, *a, **kw))(rngs, *args)
+
+    def apply(self, variables, *args, **kw):
+        return jax.jit(lambda v, *a: orig_apply(self, v, *a, **kw))(variables, *args)
+
+    nn.Module.init, nn.Module.apply = init, apply
+    try:
+        yield
+    finally:
+        nn.Module.init, nn.Module.apply = orig_init, orig_apply
