@@ -73,7 +73,8 @@ Phases (one line each, and any failure exits non-zero):
      find_essential + recover_pose and one monocular initialisation; and
      the kernel as these paths call it (the B = 1 pyramid, the threshold-15
      level) bit-equal to its plain version, timed beside its bound;
- 12. the weight-free presets on phase 7's 60 stereo frames, each at its own
+ 12. the weight-free presets on the first PRESET_FRAMES of phase 7's stereo
+     frames, each at its own
      width, with the session's descriptor gates restored afterwards; first
      every weight-free preset is built on the card through the factory and
      extracts frame 0, then:
@@ -157,6 +158,36 @@ Phases (one line each, and any failure exits non-zero):
         the first LEARNED_FRAMES of phase 11's frames: FPS, p50 and ATE;
         LightGlue card against CPU on frames 0-1 as in 14b.
      A ``learned`` JSON line gathers their numbers.
+ 16. the dense two-view matchers and the other loop detectors, seeded
+     random weights (no checkpoint in the repository):
+     a. LoFTR at its published width (480x640, dims 128/196/256, 4 coarse
+        pairs, 8 heads, 1024 matches) on frames 0 and 2 of phase 11's
+        stream, card against CPU: conf_all within DENSE_TOL of its largest,
+        LOFTR_NN_SAME of the coarse argmax identical, and with
+        conf_threshold 0 in both the fine xy2 within LOFTR_XY_TOL px on the
+        matches both keep; the match count at the default threshold, one
+        track_pair's time and GFLOP (layer shapes and the attention and
+        matching products) as a share of the float32 peak;
+     b. MASt3R at DUSt3R's published width (224x224, patch 16, encoder 24 x
+        1024, decoder 12 x 768, desc_dim 24) on frame 0's stereo pair of
+        phase 7, card against CPU (pts3d, conf, desc, desc_conf within
+        DENSE_TOL of their largest), DUSt3R's pointmaps from the same trunk
+        equal to MASt3R's, one infer_pair's time and GFLOP, match_pair on
+        frames 0 and 2; then the MAST3R preset through Slam.track() on the
+        first MAST3R_FRAMES stereo frames: every frame's two images
+        described on the card; frames tracked, resets and ATE reported (no
+        floor: random weights);
+     c. NETVLAD, MEGALOC, ALEXNET, HDC_DELF, VLAD (trained on phase 7's
+        first four frames, the centres card against CPU) and SAD through
+        LoopDetector on the card and on the CPU: two frames' descriptors
+        within DENSE_TOL of their largest, one description's time; DBOW3
+        with a PRETRAINED vocabulary the phase trains and saves: the word
+        ids identical card against CPU;
+     d. phase 8's loop stage with VLAD in place of DBOW3: 150/150 tracked,
+        at least VLAD_MIN_LOOPS loops (WITNESS_VLAD: the JAX package's run),
+        ATE under ATE_MAX, one fast_nms launch a frame, every keyframe
+        re-described after the vocabulary trained.
+     A ``dense`` JSON line gathers their numbers and the script's wall time.
 It ends with a JSON line of kernel results, the card's name and power limit,
 and, last, {"ok": true, "device": {...}}.
 """
@@ -273,6 +304,13 @@ WITNESS_SP = (28, 27, 13.1819)
 SP_TRACK_MARGIN = 2
 WITNESS_VO_LG_ATE, VO_LG_ATE_TOL = 13.8545, 1e-3
 WITNESS_COSPLACE = (143, 3, 0.6465)
+# the depth of an earlier path, cut for phase 16's time (the whole script:
+# PR 9 610.3 s; PR 10 before this cut 913.8 s on a slower host): phase 12's
+# ORB2_BEBLID and ROOT_SIFT sessions run the first PRESET_FRAMES of phase
+# 7's 60 frames.  (Phase 14c's COSPLACE stage cannot be cut so: its ATE
+# stays under ATE_MAX only through the loop's correction near frame 145;
+# 70 frames ended at 3.7629 m.)
+PRESET_FRAMES = 30
 # float32 operations a second of the H100 SXM outside the tensor cores,
 # counting a multiply-add as two (NVIDIA data sheet, 700 W)
 PEAK_FP32_FLOPS = 67e12
@@ -315,6 +353,34 @@ LEARNED_SESSIONS = ("ORB2_HARDNET", "XFEAT", "DISK", "ALIKED")
 # weights, so these are beside its results, not a floor
 WITNESS_LEARNED = {"ORB2_HARDNET": (20, 0, 0.0378), "XFEAT": (20, 0, 4.5123),
                    "DISK": (14, 1, 5.1285), "ALIKED": (20, 0, 1.0696)}
+# phases 16a-d: the dense two-view matchers and the other loop detectors,
+# seeded random weights.  LoFTR card against CPU: conf_all within DENSE_TOL
+# of its largest, LOFTR_NN_SAME of the coarse argmax identical, the fine
+# xy2 within LOFTR_XY_TOL px on the matches both keep (conf_threshold 0);
+# MASt3R's maps and the VPR descriptors within DENSE_TOL of their largest
+DENSE_TOL = 1e-4
+LOFTR_NN_SAME = 0.99
+LOFTR_XY_TOL = 1e-3
+MAST3R_FRAMES = 20
+VPR_DETECTORS = ("NETVLAD", "MEGALOC", "ALEXNET", "HDC_DELF", "VLAD", "SAD")
+# bench.py's loop stage with VLAD: the JAX package on the CPU (python -m
+# tests.torch_loop_stage --package jax --loop VLAD, x64 off) tracks 142 of
+# 150 frames (frames 142-149 lost after its last correction), closes 3 loops
+# (kf 28 with kf 18 at frame 70 and kf 45 with kf 33 at frame 120, keyframes
+# ten apart on the circle, then kf 57 with kf 7 at frame 141, the revisit),
+# ATE 0.6524 m.  The port on the CPU (--package port) tracks 150/150 and
+# closes the revisit only (kf 49 with kf 1 at frame 133), ATE 0.5995 m, as
+# with COSPLACE (phase 14c).  The near loops are chance events: VLAD over
+# ORB2's bits scores the most similar stored keyframes at 0.18-0.28, no
+# higher than the covisible neighbours (python -m tests.torch_loop_stage
+# --loop VLAD --candidates; ROADMAP.md section 3), so the floor is the
+# revisit's one loop
+WITNESS_VLAD = (142, 3, 0.6524)
+VLAD_MIN_LOOPS = 1
+
+
+T_START = time.perf_counter()
+PHASE_START = []      # (phase, time it started), for the [time] line
 
 
 def log(msg):
@@ -540,6 +606,23 @@ def profile_call(fn):
             sum(e.self_device_time_total for e in kernels) / 1e3)
 
 
+def top_kernels(fn, k=5):
+    """The ``k`` kernels of one call of fn with the most device time:
+    [(name, launches, ms)], from torch.profiler."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    kernels = sorted((e for e in prof.key_averages() if e.device_type == DeviceType.CUDA),
+                     key=lambda e: -e.self_device_time_total)
+    return [(e.key[:60], e.count, round(e.self_device_time_total / 1e3, 3))
+            for e in kernels[:k]]
+
+
 def events_ms(fn, n=20):
     """Time of one call of fn: CUDA events around n back-to-back calls after
     two warm-up calls, divided by n (where the host enqueues more slowly than
@@ -752,9 +835,10 @@ def ate_of(slam, gt_t, gt_p):
 
 
 def loop_phase(dev, cam_args, frames, loop="DBOW3"):
-    """Phase 8 (and 14c with ``loop="COSPLACE"``): bench.py's loop stage on
-    the port with the ``loop`` detector; returns its numbers.  ``frames``
-    are the rendered (left, right, timestamp)."""
+    """Phase 8 (14c with ``loop="COSPLACE"``, 16d with ``"VLAD"``):
+    bench.py's loop stage on the port with the ``loop`` detector; returns
+    its numbers.  ``frames`` are the rendered (left, right, timestamp), the
+    whole stage or its first frames."""
     import torch
 
     from pyslam_tpu_torch.features.tracker import FeatureTrackerConfig
@@ -765,8 +849,9 @@ def loop_phase(dev, cam_args, frames, loop="DBOW3"):
     from pyslam_tpu_torch.slam.slam import Slam
 
     ds = loop_stream()
-    gt_t = np.asarray([ds.getTimestamp(i) for i in range(LOOP_FRAMES)])
-    gt_p = ds.poses[:LOOP_FRAMES, :3, 3]
+    n = len(frames)
+    gt_t = np.asarray([ds.getTimestamp(i) for i in range(n)])
+    gt_p = ds.poses[:n, :3, 3]
     cam = PinholeCamera(*cam_args, fps=ds.fps, bf=ds.fx * ds.baseline, depth_threshold=35.0)
     tag = "[loop]" if loop == "DBOW3" else f"[{loop.lower()}]"
     slam = Slam(cam, FeatureTrackerConfig(num_features=N_FEATURES, num_levels=N_LEVELS),
@@ -795,7 +880,7 @@ def loop_phase(dev, cam_args, frames, loop="DBOW3"):
     t_start = time.perf_counter()
     for i, (img_l, img_r, ts) in enumerate(frames):
         nxt = None
-        if i + 1 < LOOP_FRAMES:
+        if i + 1 < n:
             nl, nr, nts = frames[i + 1]
             nxt = {"img": nl, "img_right": nr, "frame_id": i + 1, "timestamp": nts}
         n_events = len(events)
@@ -822,11 +907,11 @@ def loop_phase(dev, cam_args, frames, loop="DBOW3"):
     ate = ate_of(slam, gt_t, gt_p)
     lat_ms = np.asarray(lats[LOOP_SKIP:]) * 1e3
     gba = slam.GBA
-    log(f"{tag} {LOOP_FRAMES / wall:.2f} FPS over {LOOP_FRAMES} frames (incl. final drain), "
+    log(f"{tag} {n / wall:.2f} FPS over {n} frames (incl. final drain), "
         f"latency p50 {np.percentile(lat_ms, 50):.1f} ms p95 {np.percentile(lat_ms, 95):.1f} ms"
         f" max {lat_ms.max():.1f} ms (frame {LOOP_SKIP + int(np.argmax(lat_ms))}) over frames "
-        f"{LOOP_SKIP}-{LOOP_FRAMES - 1}; {lc.num_loops_closed} loops closed; "
-        f"{n_tracked}/{LOOP_FRAMES} tracked; {slam.map.num_keyframes()} keyframes, "
+        f"{LOOP_SKIP}-{n - 1}; {lc.num_loops_closed} loops closed; "
+        f"{n_tracked}/{n} tracked; {slam.map.num_keyframes()} keyframes, "
         f"{slam.map.num_points()} points; ATE {ate:.4f} m; GBA {gba.runs_completed} applied, "
         f"{gba.runs_aborted} aborted (cost {gba.last_cost:.3f}); fast_nms launches {launches}")
     log(f"{tag} stage totals (ms, calls): " + json.dumps(
@@ -835,14 +920,14 @@ def loop_phase(dev, cam_args, frames, loop="DBOW3"):
          if mod in ("loop_closing", "gba", "local_mapping")}))
     out = dict(loop=loop, launches=launches, n_tracked=n_tracked, ate=ate,
                loops_closed=lc.num_loops_closed, keyframes=slam.map.num_keyframes(),
-               fps=LOOP_FRAMES / wall, p50_ms=float(np.percentile(lat_ms, 50)),
+               frames=n, fps=n / wall, p50_ms=float(np.percentile(lat_ms, 50)),
                p95_ms=float(np.percentile(lat_ms, 95)), gba_applied=gba.runs_completed)
     if loop == "DBOW3":
         assert lc.num_loops_closed >= 1, "no loop closed"
         assert gba.runs_completed >= 1, "no GBA applied"
-    assert n_tracked == LOOP_FRAMES, f"{n_tracked}/{LOOP_FRAMES} tracked"
+    assert n_tracked == n, f"{n_tracked}/{n} tracked"
     assert np.isfinite(poses).all() and ate < ATE_MAX, ate
-    assert launches == LOOP_FRAMES, f"{launches} fast_nms launches for {LOOP_FRAMES} frames"
+    assert launches == n, f"{launches} fast_nms launches for {n} frames"
     assert slam.map.device.type == "cuda" and slam.map.device_store()[0].device.type == "cuda"
     if lc.detector.score_based:
         out.update(vpr_check(lc, slam))
@@ -906,6 +991,18 @@ def vpr_check(lc, slam):
     kids = sorted(slam.map.keyframes)
     missing = [k for k in kids if k not in db.kf_gdes]
     assert not missing, f"keyframes not in the database: {missing}"
+    vlad = lc.detector.vlad
+    if vlad is not None:
+        # VLAD (phase 16d): every keyframe re-described once the vocabulary
+        # trained (a placeholder fills centre 0's slot only)
+        g = np.stack([db.kf_gdes[k] for k in kids])
+        d = g.shape[1] // vlad.k
+        placeholders = int((np.abs(g[:, d:]).max(1) == 0).sum())
+        assert vlad.trained and all(len(db.kf_words[k]) == 0 for k in kids)
+        assert np.allclose(np.linalg.norm(g, axis=1), 1.0, atol=1e-4) and placeholders == 0
+        log(f"[vlad] {len(kids)} keyframes described ({g.shape[1]}-d, {vlad.k} centres, no "
+            f"words), none left with the pre-training placeholder")
+        return dict(described=len(kids), db_entries=len(db.kf_gdes), placeholders=placeholders)
     g = np.stack([db.kf_gdes[k] for k in kids])
     assert g.shape == (len(kids), net.out_dim) and all(len(db.kf_words[k]) == 0 for k in kids)
     assert np.allclose(np.linalg.norm(g, axis=1), 1.0, atol=1e-4)
@@ -1793,6 +1890,288 @@ def learned_sessions_phase(dev, frames, cam, ds):
     return out
 
 
+def _i1_of(xy1, wc):
+    """LoFTR's coarse row index of each full-resolution xy1 (cell centres)."""
+    xy = np.asarray(xy1).astype(np.int64) // 2
+    return (xy[:, 1] - 2) // 4 * wc + (xy[:, 0] - 2) // 4
+
+
+def loftr_einsum_flops(cfg, n_fine):
+    """Floating-point operations of LoFTR outside its Conv2d / Linear
+    layers: the linear attention of every encoder application (K^T V, the
+    normaliser and Q (K^T V), both views), the coarse similarity matrix and
+    the fine heatmap and expectation over ``n_fine`` windows."""
+    hc, wc = cfg.img_hw[0] // 8, cfg.img_hw[1] // 8
+    n, d_c, d_f, w = hc * wc, cfg.dims[2], cfg.dims[0], cfg.fine_window ** 2
+
+    def attn(tokens, d):
+        return 4 * tokens * d * (d // cfg.heads) + 2 * tokens * d
+
+    coarse = 4 * cfg.coarse_layers * attn(n, d_c) + 2 * n * n * d_c
+    fine = (4 * cfg.fine_layers * n_fine * attn(w, d_f) + 2 * n_fine * w * d_f
+            + 2 * n_fine * w * 2)
+    return coarse + fine
+
+
+def loftr_phase(dev, frames):
+    """Phase 16a: LoFTR at its published width on frames 0 and 2 of phase
+    11's stream, card against CPU with the same seeded weights; the match
+    count at the default threshold, one track_pair's time and GFLOP."""
+    import torch
+
+    from pyslam_tpu_torch.features.tracker import feature_tracker_factory
+    from pyslam_tpu_torch.models.loftr import LoFTRMatcher
+
+    img1, img2 = frames[0][0], frames[2][0]
+    mg, mc = LoFTRMatcher(device=dev), LoFTRMatcher(device="cpu")
+    cfg = mg.cfg
+    wc = cfg.img_hw[1] // 8
+    coarse = {}
+    with torch.no_grad():
+        for name, m in (("card", mg), ("cpu", mc)):
+            f1, f2, _ = m.net.coarse(m.prep(img1), m.prep(img2))
+            nn12, conf_all, _, _ = m.net.match_coarse(f1, f2)
+            coarse[name] = (nn12.cpu(), conf_all.cpu())
+    (nn_g, conf_g), (nn_c, conf_c) = coarse["card"], coarse["cpu"]
+    conf_err = float((conf_g - conf_c).abs().max() / conf_c.abs().max())
+    nn_same = float((nn_g == nn_c).float().mean())
+    n_default = int(mg.run(img1, img2)[3].sum())
+    threshold = cfg.conf_threshold
+    try:
+        mg.cfg.conf_threshold = mc.cfg.conf_threshold = 0.0
+        rg = [t.cpu().numpy() for t in mg.run(img1, img2)]
+        rc = [t.numpy() for t in mc.run(img1, img2)]
+    finally:
+        mg.cfg.conf_threshold = mc.cfg.conf_threshold = threshold
+    # the matches both keep: the same coarse pair (i1, nn12[i1]), valid in both
+    i1g, i1c = _i1_of(rg[0], wc), _i1_of(rc[0], wc)
+    rows_c = {int(i): r for r, i in enumerate(i1c) if rc[3][r]}
+    both = [(r, rows_c[int(i)]) for r, i in enumerate(i1g)
+            if rg[3][r] and int(i) in rows_c and int(nn_g[i]) == int(nn_c[i])]
+    xy_err = max((float(np.abs(rg[1][a] - rc[1][b]).max()) for a, b in both), default=0.0)
+    tracker = feature_tracker_factory("LOFTR", device=dev)
+    pair = lambda: tracker.track_pair(img1, img2)  # noqa: E731
+    ms = events_ms(pair, n=5)
+    launches, kernel_ms = profile_call(pair)
+    flops = (layer_flops([tracker.matcher.net], lambda: tracker.matcher.run(img1, img2))
+             + loftr_einsum_flops(cfg, cfg.max_matches))
+    out = dict(conf_all_rel_err=conf_err, nn12_identical=nn_same, default_matches=n_default,
+               both_kept=len(both), kept_card=int(rg[3].sum()), kept_cpu=int(rc[3].sum()),
+               xy2_max_err_px=xy_err, track_pair_ms=ms, gflop=flops / 1e9,
+               fp32_peak_share=flops / (ms * 1e-3) / PEAK_FP32_FLOPS,
+               launches=launches, kernel_ms=kernel_ms, top_kernels=top_kernels(pair),
+               trained=tracker.trained)
+    log(f"[loftr] {cfg.img_hw[0]}x{cfg.img_hw[1]}, dims {cfg.dims}, {cfg.coarse_layers} coarse "
+        f"pairs, {cfg.heads} heads, {cfg.max_matches} matches, trained {tracker.trained}: card "
+        f"against CPU conf_all within {conf_err:.3g} (relative), {nn_same * 100:.2f}% of nn12 "
+        f"identical; {n_default} matches at the default threshold {threshold} on the card; "
+        f"threshold 0: {out['kept_card']} kept on the card, {out['kept_cpu']} on the CPU, "
+        f"{len(both)} by both, fine xy2 within {xy_err:.3g} px; track_pair {ms:.2f} ms "
+        f"(CUDA events) for {flops / 1e9:.2f} GFLOP "
+        f"({out['fp32_peak_share'] * 100:.1f}% of the float32 peak), {launches} launches and "
+        f"{kernel_ms:.2f} ms of kernel time (torch.profiler); top kernels "
+        f"{json.dumps(out['top_kernels'])}")
+    assert conf_err <= DENSE_TOL and nn_same >= LOFTR_NN_SAME, out
+    assert len(both) > 0 and xy_err <= LOFTR_XY_TOL, out
+    del mg, mc, tracker
+    torch.cuda.empty_cache()
+    return out
+
+
+def attention_flops(cfg, views=2):
+    """Floating-point operations of the DUSt3R-class attention products
+    (Q K^T and A V) of both views: encoder self-attention, decoder self-
+    and cross-attention."""
+    n = (cfg.img_hw[0] // cfg.patch) * (cfg.img_hw[1] // cfg.patch)
+    enc = cfg.enc_depth * 4 * n * n * cfg.enc_dim
+    dec = cfg.dec_depth * 2 * 4 * n * n * cfg.dec_dim
+    return views * (enc + dec)
+
+
+def mast3r_phase(dev, frames, cam, ds):
+    """Phase 16b: MASt3R (and DUSt3R from the same trunk) at the published
+    width on phase 7's frame 0 pair, card against CPU; match_pair on
+    frames 0 and 2; the MAST3R preset through Slam.track() on the first
+    MAST3R_FRAMES frames."""
+    import copy
+
+    import torch
+
+    from pyslam_tpu_torch.models.dust3r import Dust3rNet
+    from pyslam_tpu_torch.models.mast3r import Mast3rModel
+
+    l0, r0 = frames[0][0], frames[0][1]
+    t0 = time.perf_counter()
+    # one seeded draw of the 0.5 G weights (about 8 s on the host): the
+    # card's model is a copy of the CPU's
+    mc = Mast3rModel(device="cpu")
+    mg = copy.copy(mc)
+    mg.device, mg.net = torch.device(dev), copy.deepcopy(mc.net).to(dev)
+    build_s = time.perf_counter() - t0
+    cfg = mg.cfg
+    og, oc = mg.infer_pair(l0, r0), mc.infer_pair(l0, r0)
+    names = ("pts3d", "conf", "desc", "desc_conf")
+    errs = {f"{k}{v + 1}": float((g.cpu() - c).abs().max() / c.abs().max())
+            for v in (0, 1) for k, g, c in zip(names, og[v], oc[v])}
+    finite = all(bool(torch.isfinite(t).all()) for view in og for t in view)
+    ms = events_ms(lambda: mg.infer_pair(l0, r0), n=5)
+    launches, kernel_ms = profile_call(lambda: mg.infer_pair(l0, r0))
+    tops = top_kernels(lambda: mg.infer_pair(l0, r0))
+    flops = (layer_flops([mg.net], lambda: mg.infer_pair(l0, r0)) + attention_flops(cfg))
+    # DUSt3R: the linear heads of the same trunk give MASt3R's pointmaps
+    # (the net made on the card, then given MASt3R's weights)
+    with torch.device(dev):
+        dnet = Dust3rNet(cfg)
+    dg = copy.copy(mg)
+    dg.net = dnet.to(dev).eval()
+    missing, unexpected = dg.net.load_state_dict(mg.net.state_dict(), strict=False)
+    assert not missing and all(".head_local_features." in k for k in unexpected), missing
+    dp = dg.infer_pair(l0, r0)
+    dust_err = max(float((a - b).abs().max()) for a, b in
+                   zip(dp, (og[0][0], og[0][1], og[1][0], og[1][1])))
+    del dg
+    f2 = frames[2][0]
+    mg_pairs = mg.match_pair(l0, f2)
+    mc_pairs = mc.match_pair(l0, f2)
+    out = dict(build_s=build_s, map_rel_err=errs, finite=finite, infer_pair_ms=ms,
+               gflop=flops / 1e9, fp32_peak_share=flops / (ms * 1e-3) / PEAK_FP32_FLOPS,
+               launches=launches, kernel_ms=kernel_ms, top_kernels=tops,
+               dust3r_max_abs_diff=dust_err, matches_card=len(mg_pairs[0]),
+               matches_cpu=len(mc_pairs[0]), trained=mg.trained)
+    log(f"[mast3r] {cfg.img_hw[0]}x{cfg.img_hw[1]}, patch {cfg.patch}, encoder "
+        f"{cfg.enc_depth}x{cfg.enc_dim} ({cfg.enc_heads} heads), decoder {cfg.dec_depth}x"
+        f"{cfg.dec_dim} ({cfg.dec_heads} heads), desc_dim {cfg.desc_dim}, trained {mg.trained} "
+        f"(both models built in {build_s:.1f} s): card against CPU on frame 0's pair "
+        f"{json.dumps({k: float(f'{v:.3g}') for k, v in errs.items()})} (relative); "
+        f"infer_pair {ms:.2f} ms (CUDA events) for {flops / 1e9:.1f} GFLOP "
+        f"({out['fp32_peak_share'] * 100:.1f}% of the float32 peak), {launches} launches and "
+        f"{kernel_ms:.2f} ms of kernel time, top kernels {json.dumps(tops)}; DUSt3R on the same "
+        f"trunk within {dust_err:.3g} of MASt3R's pointmaps; match_pair frames 0-2: "
+        f"{out['matches_card']} matches on the card, {out['matches_cpu']} on the CPU")
+    assert finite and max(errs.values()) <= DENSE_TOL and dust_err <= 1e-6, out
+    del mg, mc
+    torch.cuda.empty_cache()
+    n = MAST3R_FRAMES
+    sess = preset_session(dev, "MAST3R", frames[:n], cam, ds)
+    log(f"[mast3r] MAST3R session, {n} stereo frames through Slam.track() on the card: "
+        f"{sess['n_tracked']} tracked, {sess['resets']} resets, {sess['keyframes']} keyframes, "
+        f"ATE {sess['ate']:.4f} m, p50 {sess['p50_ms']:.1f} ms (random weights: no floor)")
+    assert sess["desc_devices"] == [torch.device(dev).type], sess
+    assert sess["described"] >= 2 * n and sess["launches"] == 0, sess
+    out["session"] = sess
+    return out
+
+
+def _vpr_frames(dev, frames, n):
+    """Port Frames of phase 7's first ``n`` stereo frames on the card with
+    the ORB2 tracker, keeping their half-resolution images."""
+    from pyslam_tpu_torch.config_parameters import Parameters
+    from pyslam_tpu_torch.features.tracker import FeatureTrackerConfig, feature_tracker_factory
+    from pyslam_tpu_torch.slam.camera import PinholeCamera
+    from pyslam_tpu_torch.slam.frame import Frame
+
+    ds = bench_stream()
+    cam = PinholeCamera(ds.w, ds.h, ds.fx, ds.fy, ds.cx, ds.cy, fps=ds.fps,
+                        bf=ds.fx * ds.baseline, depth_threshold=35.0)
+    tracker = feature_tracker_factory(FeatureTrackerConfig(num_features=N_FEATURES,
+                                                           num_levels=N_LEVELS), device=dev)
+    retain = Parameters.kRetainImageForVPR
+    Parameters.kRetainImageForVPR = True
+    try:
+        return [Frame(cam, l, img_right=r, timestamp=ts, feature_tracker=tracker, frame_id=i)
+                for i, (l, r, ts) in enumerate(frames[:n])]
+    finally:
+        Parameters.kRetainImageForVPR = retain
+
+
+def _on_cpu(frame):
+    """A card Frame as the CPU detectors read it: its host fields, and its
+    device fields copied to the CPU."""
+    from types import SimpleNamespace
+
+    return SimpleNamespace(des=frame.des, valid=frame.valid, img_vpr=frame.img_vpr,
+                           img_thumb=frame.img_thumb, dev=lambda name: frame.dev(name).cpu())
+
+
+def vpr_phase(dev, frames):
+    """Phase 16c: every other loop detector on the card and on the CPU:
+    the descriptors of two of phase 7's frames (VLAD after training on its
+    first four), the time of one description on the card; a DBOW3 detector
+    with the PRETRAINED vocabulary the phase saves."""
+    import dataclasses
+    import tempfile
+
+    import torch
+
+    from pyslam_tpu_torch.config_parameters import Parameters
+    from pyslam_tpu_torch.loop_closing.loop_closing import LoopDetector
+    from pyslam_tpu_torch.loop_closing.loop_detector_configs import (
+        LoopDetectorConfigs,
+        LoopDetectorVocabularyType,
+    )
+    from pyslam_tpu_torch.loop_closing.vocabulary import HierarchicalVocabulary
+
+    fr = _vpr_frames(dev, frames, 6)
+    train, test = fr[:4], fr[4:]
+    on = {"card": lambda f: f, "cpu": _on_cpu}
+    rows = {}
+    retain = Parameters.kRetainImageForVPR
+    try:
+        for name in VPR_DETECTORS:
+            cfg = LoopDetectorConfigs.get(name)
+            dets = {"card": LoopDetector(cfg, device=dev), "cpu": LoopDetector(cfg, device="cpu")}
+            row = {}
+            if name == "VLAD":
+                for where, det in dets.items():
+                    for f in train:
+                        det.describe_frame(on[where](f))
+                    assert det.vlad.trained and det.vlad.consume_just_trained()
+                cg, cc = dets["card"].vlad.centers, dets["cpu"].vlad.centers
+                row["centers_rel_err"] = float(np.abs(cg - cc).max() / np.abs(cc).max())
+            errs = []
+            for f in test:
+                g = dets["card"].describe_frame(f)[1]
+                c = dets["cpu"].describe_frame(_on_cpu(f))[1]
+                errs.append(float(np.abs(g - c).max() / np.abs(c).max()))
+                assert np.isfinite(g).all() and abs(np.linalg.norm(g) - 1.0) < 1e-4
+            det = dets["card"]
+            row.update(rel_err=max(errs), dim=int(g.shape[0]),
+                       describe_ms=events_ms(lambda: det.describe_frame(test[0]), n=10),
+                       trained=None if det.netvlad is None else bool(det.netvlad.trained))
+            log(f"[vpr] {name}: {row['dim']}-d, card against CPU within {row['rel_err']:.3g} "
+                f"(relative) on frames 4-5"
+                + (f", the trained centres within {row['centers_rel_err']:.3g}"
+                   if name == "VLAD" else "")
+                + f"; one description {row['describe_ms']:.3f} ms on the card (CUDA events)")
+            assert row["rel_err"] <= DENSE_TOL and row.get("centers_rel_err", 0.0) <= DENSE_TOL, row
+            rows[name] = row
+            del dets, det
+            torch.cuda.empty_cache()
+    finally:
+        Parameters.kRetainImageForVPR = retain
+    # PRETRAINED: a tree trained on frame 0's descriptors, saved, loaded
+    voc = HierarchicalVocabulary(branching=8, depth=4, device="cpu")
+    voc.words_for(fr[0].des, fr[0].valid)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_voc_") as root:
+        path = os.path.join(root, "voc.npz")
+        voc.save(path)
+        cfg = dataclasses.replace(LoopDetectorConfigs.DBOW3, extra={"vocabulary_path": path},
+                                  vocabulary_type=LoopDetectorVocabularyType.PRETRAINED)
+        dets = {"card": LoopDetector(cfg, device=dev), "cpu": LoopDetector(cfg, device="cpu")}
+    same, hist_err = True, 0.0
+    for f in test:
+        (wg, hg), (wc, hc) = (d.describe_frame(on[k](f)) for k, d in dets.items())
+        same &= bool(np.array_equal(wg, wc))
+        hist_err = max(hist_err, float(np.abs(hg - hc).max()))
+    rows["PRETRAINED"] = dict(word_ids_identical=same, hist_max_abs_err=hist_err,
+                              checksum=dets["card"].vocabulary.checksum())
+    log(f"[vpr] DBOW3 with the PRETRAINED vocabulary ({voc.num_words} words, checksum "
+        f"{rows['PRETRAINED']['checksum']}): word ids card against CPU "
+        f"{'identical' if same else 'DIFFER'}, histograms within {hist_err:.3g}")
+    assert same and hist_err <= 1e-6, rows["PRETRAINED"]
+    return rows
+
+
 def write_kitti_sequence(root, frames, ds):
     """Phase 7's stereo frames as a KITTI odometry sequence 00 under
     ``root`` (uint8 PNGs as bench.py's frame cache stores them, times.txt,
@@ -1990,6 +2369,7 @@ def main():
     import torch
 
     # ---------------------------------------------------------------- 1
+    PHASE_START.append((1, time.perf_counter()))
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; the port runs on the GPU only")
     dev = torch.device("cuda", 0)
@@ -2012,6 +2392,7 @@ def main():
     from pyslam_tpu_torch.slam.slam import Slam
 
     # ---------------------------------------------------------------- 2
+    PHASE_START.append((2, time.perf_counter()))
     t0 = time.perf_counter()
     lib = _build.load()
     log(f"[build] kernels built and loaded in {time.perf_counter() - t0:.2f} s "
@@ -2021,6 +2402,7 @@ def main():
             log(f"[build] {line.strip()}")
 
     # ---------------------------------------------------------------- 3
+    PHASE_START.append((3, time.perf_counter()))
     ds = bench_stream()
     left0, right0 = ds.getImage(0), ds.getImageRight(0)
     pair = torch.as_tensor(np.stack([left0, right0])).to(dev)
@@ -2088,11 +2470,13 @@ def main():
         f"interior), {work['bound_ms'] / kern_ms * 100:.1f}% of it")
 
     # ---------------------------------------------------------------- 4
+    PHASE_START.append((4, time.perf_counter()))
     n_checks = check_ties(dev)
     log(f"[ties] argmin/argmax keep the first index and the stable sort keeps input order "
         f"on the card: {n_checks} checks")
 
     # ---------------------------------------------------------------- 5
+    PHASE_START.append((5, time.perf_counter()))
     bf = FX * BASELINE_M
     args = dict(bf=bf, max_disp=bf / 0.1, max_distance=100.0, row_tol=2.0)
     fg, urg, _ = ORB2Extractor(N_FEATURES, N_LEVELS, device=dev).extract_stereo(
@@ -2110,11 +2494,13 @@ def main():
     assert same.mean() >= 0.99 and desc_eq and n_match > 0
 
     # ---------------------------------------------------------------- 6
+    PHASE_START.append((6, time.perf_counter()))
     cam = PinholeCamera(ds.w, ds.h, ds.fx, ds.fy, ds.cx, ds.cy, fps=ds.fps,
                         bf=ds.fx * ds.baseline, depth_threshold=35.0)
     dense_phase(dev, ds, cam, left0, right0)
 
     # ---------------------------------------------------------------- 7
+    PHASE_START.append((7, time.perf_counter()))
     t0 = time.perf_counter()
     frames = [(ds.getImage(i), ds.getImageRight(i), ds.getTimestamp(i))
               for i in range(N_FRAMES)]
@@ -2190,6 +2576,7 @@ def main():
     torch.cuda.empty_cache()
 
     # ---------------------------------------------------------------- 8
+    PHASE_START.append((8, time.perf_counter()))
     t0 = time.perf_counter()
     loop_frames = render(render_loop_frames, LOOP_FRAMES)
     log(f"[loop] rendered {LOOP_FRAMES} stereo frames {H}x{W} in "
@@ -2199,6 +2586,7 @@ def main():
     torch.cuda.empty_cache()   # the frames stay for phase 14c
 
     # ---------------------------------------------------------------- 9
+    PHASE_START.append((9, time.perf_counter()))
     from pyslam_tpu_torch.config_parameters import Parameters
     from pyslam_tpu_torch.dense.volumetric_integrator import (
         VolumetricIntegratorType, volumetric_integrator_factory)
@@ -2229,6 +2617,7 @@ def main():
     torch.cuda.empty_cache()
 
     # ---------------------------------------------------------------- 10
+    PHASE_START.append((10, time.perf_counter()))
     ds_mono = bench_stream("MONOCULAR")
     cam_mono = PinholeCamera(ds.w, ds.h, ds.fx, ds.fy, ds.cx, ds.cy, fps=ds.fps,
                              depth_threshold=35.0)
@@ -2245,6 +2634,7 @@ def main():
     torch.cuda.empty_cache()
 
     # ---------------------------------------------------------------- 11
+    PHASE_START.append((11, time.perf_counter()))
     vo, tracker = vo_phase(dev, rgbd_frames, cam_mono, ds_rgbd)
     assert vo["mono"]["launches"] == N_FRAMES and vo["rgbd"]["launches"] == N_FRAMES, \
         {k: v["launches"] for k, v in vo.items()}
@@ -2262,14 +2652,17 @@ def main():
         default=float))
 
     # ---------------------------------------------------------------- 12
-    feats = features_phase(dev, frames, cam, ds)
+    PHASE_START.append((12, time.perf_counter()))
+    feats = features_phase(dev, frames[:PRESET_FRAMES], cam, ds)
     print(json.dumps({"features": feats}, default=float), flush=True)
 
     # ---------------------------------------------------------------- 13
+    PHASE_START.append((13, time.perf_counter()))
     entry = entry_phase(dev, frames, ds)
     print(json.dumps({"entry": entry}, default=float), flush=True)
 
     # ---------------------------------------------------------------- 14
+    PHASE_START.append((14, time.perf_counter()))
     models = {"superpoint": superpoint_phase(dev, frames, cam, ds),
               "lightglue_vo": lightglue_vo_phase(dev, rgbd_frames, cam_mono, ds_rgbd)}
     retain = Parameters.kRetainImageForVPR
@@ -2282,15 +2675,34 @@ def main():
         f"CPU: {WITNESS_COSPLACE[0]}/{LOOP_FRAMES} tracked, {WITNESS_COSPLACE[1]} loops closed, "
         f"ATE {WITNESS_COSPLACE[2]} m")
     print(json.dumps({"models": models}, default=float), flush=True)
-    del loop_frames
 
     # ---------------------------------------------------------------- 15
+    PHASE_START.append((15, time.perf_counter()))
     learned = {"models": learned_models_phase(dev, frames),
                "sessions": learned_sessions_phase(dev, frames[:LEARNED_FRAMES], cam, ds),
                "xfeat_lightglue_vo": lightglue_vo_phase(
                    dev, rgbd_frames[:LEARNED_FRAMES], cam_mono, ds_rgbd,
                    preset="XFEAT_LIGHTGLUE")}
     print(json.dumps({"learned": learned}, default=float), flush=True)
+
+    # ---------------------------------------------------------------- 16
+    PHASE_START.append((16, time.perf_counter()))
+    dense = {"loftr": loftr_phase(dev, rgbd_frames),
+             "mast3r": mast3r_phase(dev, frames, cam, ds),
+             "vpr": vpr_phase(dev, frames)}
+    vl = dense["vlad_stage"] = loop_phase(dev, cam_args, loop_frames, loop="VLAD")
+    del loop_frames
+    log(f"[vlad] loop stage: {vl['n_tracked']}/{LOOP_FRAMES} tracked, {vl['loops_closed']} "
+        f"loops closed, ATE {vl['ate']:.4f} m, fast_nms launches {vl['launches']}; the JAX "
+        f"package on the CPU: {WITNESS_VLAD[0]}/{LOOP_FRAMES} tracked, {WITNESS_VLAD[1]} loops "
+        f"closed, ATE {WITNESS_VLAD[2]} m")
+    assert vl["loops_closed"] >= VLAD_MIN_LOOPS, f"{vl['loops_closed']} loops closed"
+    dense["wall_s"] = time.perf_counter() - T_START
+    ends = [t for _, t in PHASE_START[1:]] + [time.perf_counter()]
+    dense["phase_s"] = {ph: round(end - t, 1) for (ph, t), end in zip(PHASE_START, ends)}
+    log(f"[time] the script so far {dense['wall_s']:.1f} s; seconds a phase "
+        f"{json.dumps(dense['phase_s'])}")
+    print(json.dumps({"dense": dense}, default=float), flush=True)
 
     print(json.dumps({"kernels": [{
         "name": "fast_nms", "route": "cuda",
@@ -2305,6 +2717,7 @@ def main():
         "launches_superpoint_stage": models["superpoint"]["session"]["launches"],
         "launches_cosplace_stage": cos["launches"],
         "launches_orb2_hardnet_stage": learned["sessions"]["ORB2_HARDNET"]["launches"],
+        "launches_vlad_stage": vl["launches"],
         "mono_frame": one["b1_pyramid"], "vo_rgbd_level_th15": one["vo_level_th15"],
         "max_abs_err": max_err, "ms": kern_ms, "plain_ms": plain_ms,
         "bound_ms": work["bound_ms"], "bound_by": work["bound_by"], "library_ms": None,

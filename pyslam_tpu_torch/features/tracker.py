@@ -13,9 +13,12 @@ GeoDesc / LogPolar over ORB2 or Shi-Tomasi keypoints, ContextDesc over
 SIFT's) and LightGlue on their 64- or 128-d descriptors run with seeded
 random weights (``trained = False``) until official checkpoints are
 given (``extra["checkpoint"]``, ``"descriptor_checkpoint"``,
-``"matcher_checkpoint"``).  The dense two-view matchers LOFTR and MAST3R
-raise ``ValueError``: they come with the next part of the learned-model
-slice.
+``"matcher_checkpoint"``).  The dense two-view matchers run with seeded
+random weights too: LOFTR (``LoftrFeatureTracker``, detector-free:
+``track_pair`` only, as the reference) and MAST3R
+(``Mast3rFeatureTracker``: per-image keypoints from the two-view network
+on (img, img), so the preset runs through ``Slam.track()``, and
+``track_pair``).
 """
 
 from __future__ import annotations
@@ -41,10 +44,6 @@ from pyslam_tpu_torch.features.types import (
     FeatureDetectorTypes,
     NormType,
 )
-
-DENSE_SLICE = ("the next part of the learned-model slice (ROADMAP item 3.1: the dense "
-               "matchers LOFTR, then MAST3R with DUSt3R)")
-
 
 class FeatureTrackerTypes(enum.Enum):
     DES_BF = 0    # descriptor matching, brute force (default)
@@ -178,8 +177,10 @@ LEARNED_PRESETS = ("SUPERPOINT", "LIGHTGLUE", "XFEAT", "XFEAT_LIGHTGLUE", "DISK"
                    "D2NET", "KEYNET", "KEYNETAFFNETHARDNET", "ORB2_HARDNET", "ORB2_SOSNET",
                    "ORB2_L2NET", "ORB2_TFEAT", "SHI_TOMASI_HARDNET", "ORB2_GEODESC", "GEODESC",
                    "LOGPOLAR", "CONTEXTDESC", "LFNET", "DELF")
-# every preset the port runs (all but the dense matchers LOFTR and MAST3R)
-PORTED_PRESETS = WEIGHT_FREE_PRESETS + LEARNED_PRESETS
+# the dense two-view matchers (seeded random weights)
+DENSE_PRESETS = ("LOFTR", "MAST3R")
+# every preset of the JAX package
+PORTED_PRESETS = WEIGHT_FREE_PRESETS + LEARNED_PRESETS + DENSE_PRESETS
 
 # detector -> (module of pyslam_tpu_torch.models, extractor class)
 _LEARNED_DETECTORS = {
@@ -251,10 +252,6 @@ class FeatureTracker:
 
     def __init__(self, config: FeatureTrackerConfig, *, device: torch.device | str = "cuda"):
         desc = config.descriptor_type
-        if config.tracker_type in (_T.MAST3R, _T.LOFTR):
-            raise ValueError(f"feature tracker preset {config.name}: the "
-                             f"{config.tracker_type.name} two-view matcher comes with "
-                             f"{DENSE_SLICE}")
         self.config = config
         self.device = torch.device(device)
         self.num_features = config.num_features
@@ -342,10 +339,83 @@ class LkFeatureTracker(FeatureTracker):
         return pts1.cpu().numpy(), ok.cpu().numpy(), res.cpu().numpy()
 
 
+class Mast3rFeatureTracker(FeatureTracker):
+    """MASt3R dense tracker: keypoints are the most descriptor-confident
+    pixels of the two-view network run on (img, img)
+    (``models.mast3r.Mast3rExtractor``), matched by brute-force L2 with the
+    preset's ratio and ``FEATURE_INFO[MAST3R]``'s distance;
+    ``track_pair`` is the joint two-view reciprocal matching."""
+
+    def __init__(self, config: FeatureTrackerConfig, *, device: torch.device | str = "cuda"):
+        from pyslam_tpu_torch.models.mast3r import Mast3rExtractor, Mast3rModel
+
+        self.config = config
+        self.device = torch.device(device)
+        self.num_features = config.num_features
+        self.num_levels = config.num_levels
+        self.scale_factor = config.scale_factor
+        self.model = Mast3rModel(checkpoint=config.extra.get("checkpoint"), device=self.device)
+        self.extractor = Mast3rExtractor(self.model, config.num_features)
+        self.norm = NormType.L2
+        self.matcher = feature_matcher_factory(
+            norm=NormType.L2, matcher_type=FeatureMatcherTypes.BF,
+            max_distance=FEATURE_INFO[_S.MAST3R].max_distance, ratio_test=config.ratio_test)
+        self.scale_factors = self.extractor.scale_factors
+        self.sigma2 = self.extractor.sigma2
+        self.inv_sigma2 = self.extractor.inv_sigma2
+
+    def track_pair(self, img1, img2):
+        """Joint two-view dense matching -> (xy1, xy2, scores) host arrays,
+        each in its own image's input pixels."""
+        xy1, xy2, s = self.model.match_pair(img1, img2)
+        h1, w1 = np.asarray(img1).shape[:2]
+        h2, w2 = np.asarray(img2).shape[:2]
+        Hn, Wn = self.model.cfg.img_hw
+        xy1 = xy1 * np.array([w1 / Wn, h1 / Hn], np.float32)
+        xy2 = xy2 * np.array([w2 / Wn, h2 / Hn], np.float32)
+        return xy1, xy2, s
+
+
+class LoftrFeatureTracker:
+    """LoFTR dense tracker: no per-image descriptors; correspondences come
+    from joint two-view inference (``track_pair``)."""
+
+    def __init__(self, config: FeatureTrackerConfig, *, device: torch.device | str = "cuda"):
+        from pyslam_tpu_torch.models.loftr import LoFTRConfig, LoFTRMatcher
+
+        self.config = config
+        self.device = torch.device(device)
+        self.num_features = config.num_features
+        cfg = LoFTRConfig(max_matches=config.num_features,
+                          img_hw=config.extra.get("img_hw", (480, 640)))
+        self.matcher = LoFTRMatcher(cfg, checkpoint=config.extra.get("checkpoint"),
+                                    device=self.device)
+        self.norm = NormType.L2
+        self.scale_factors = np.array([1.0], np.float32)
+        self.sigma2 = np.array([1.0], np.float32)
+        self.inv_sigma2 = 1.0 / self.sigma2
+
+    @property
+    def trained(self) -> bool:
+        return self.matcher.trained
+
+    def track_pair(self, img1, img2):
+        return self.matcher.match_pair(img1, img2)
+
+    def detectAndCompute(self, img):
+        raise NotImplementedError(
+            "LoFTR is detector-free; use track_pair(img1, img2) (the reference "
+            "LoftrFeatureTracker has the same restriction)")
+
+
 def feature_tracker_factory(config: FeatureTrackerConfig | str = "ORB2", *,
-                            device: torch.device | str = "cuda") -> FeatureTracker:
+                            device: torch.device | str = "cuda"):
     if isinstance(config, str):
         config = FeatureTrackerConfigs.get(config)
     if config.tracker_type == _T.LK:
         return LkFeatureTracker(config, device=device)
+    if config.tracker_type == _T.MAST3R:
+        return Mast3rFeatureTracker(config, device=device)
+    if config.tracker_type == _T.LOFTR:
+        return LoftrFeatureTracker(config, device=device)
     return FeatureTracker(config, device=device)

@@ -115,7 +115,7 @@ DESCRIPTOR_WIDTH = {
     _F.SUPERPOINT: 256, _F.XFEAT: 64, _F.DISK: 128, _F.ALIKED: 128, _F.R2D2: 128,
     _F.D2NET: 512, _F.HARDNET: 128, _F.SOSNET: 128, _F.L2NET: 128, _F.TFEAT: 128,
     _F.GEODESC: 128, _F.LOGPOLAR: 128, _F.CONTEXTDESC: 128, _F.LFNET: 256, _F.DELF: 40,
-    _F.SIFT: 128, _F.ROOT_SIFT: 128,
+    _F.SIFT: 128, _F.ROOT_SIFT: 128, _F.MAST3R: 24,
 }
 
 # descriptor types computed by a patch network over the detector's keypoints

@@ -15,7 +15,10 @@ The learned models' weights: ``superpoint_state_dict``,
 and the local features' ``hardnet_state_dict`` (HardNet, L2Net, SOSNet,
 the log-polar net), ``tfeat_state_dict``, ``xfeat_state_dict``,
 ``aliked_state_dict``, ``r2d2_state_dict`` and ``same_names_state_dict``
-(GeoDesc, DISK, D2-Net, Key.Net, LF-Net, DELF, ContextDesc) take the JAX
+(GeoDesc, DISK, D2-Net, Key.Net, LF-Net, DELF, ContextDesc), and the
+dense matchers' and VPR networks' ``loftr_state_dict``,
+``dust3r_state_dict`` / ``mast3r_state_dict``, ``netvlad_state_dict``,
+``megaloc_state_dict`` and ``alexnet_state_dict`` take the JAX
 package's flat parameters (the ``params/...`` keys of its ``.npz``
 checkpoints, numpy arrays, as ``pyslam_tpu/models/torch_convert.py``
 flattens them) and return the port's ``state_dict``: a flax convolution
@@ -252,3 +255,89 @@ def seeded_init_(module: torch.nn.Module, seed: int) -> torch.nn.Module:
             elif name.endswith("bias"):
                 p.zero_()
     return module
+
+
+# ------------------------------------------ dense matchers and VPR networks
+_LOFTR_FPN = {"l3_out": "layer3_outconv", "l2_out": "layer2_outconv",
+              "l2_fuse1": "layer2_outconv2.0", "l2_fuse_bn": "layer2_outconv2.1",
+              "l2_fuse2": "layer2_outconv2.3", "l1_out": "layer1_outconv",
+              "l1_fuse1": "layer1_outconv2.0", "l1_fuse_bn": "layer1_outconv2.1",
+              "l1_fuse2": "layer1_outconv2.3"}
+_LOFTR_TRANSFORMERS = {"coarse": "loftr_coarse", "fine": "loftr_fine"}
+
+
+def _loftr_module(path: tuple) -> str:
+    head, rest = path[0], path[1:]
+    if head == "backbone":
+        return ".".join(["backbone"] + [_LOFTR_FPN.get(p) or _resnet_module((p,))
+                                         for p in rest])
+    if head in _LOFTR_TRANSFORMERS:
+        kind, i = rest[0].split("_")                   # self_i / cross_i
+        layer = 2 * int(i) + (kind == "cross")
+        sub = {"mlp1": "mlp.0", "mlp2": "mlp.2"}.get(rest[1], rest[1])
+        return f"{_LOFTR_TRANSFORMERS[head]}.layers.{layer}.{sub}"
+    return f"fine_preprocess.{head}"                   # down_proj, merge_feat
+
+
+def loftr_state_dict(flat: dict) -> dict[str, torch.Tensor]:
+    """``LoFTRNet`` weights (the official names) from the JAX package's
+    ``LoFTRNet`` tree: ``backbone/layer{i}_{j}`` and the FPN's
+    ``l{2,3}_out`` / ``l{1,2}_fuse*``, ``coarse|fine/self_i|cross_i`` ->
+    ``loftr_{coarse,fine}.layers.{2i|2i+1}`` (``mlp1`` / ``mlp2`` ->
+    ``mlp.0`` / ``mlp.2``), ``down_proj`` / ``merge_feat`` ->
+    ``fine_preprocess.*``."""
+    return _convert(flat, _loftr_module)
+
+
+def _dust3r_module(path: tuple) -> str:
+    head, rest = path[0], path[1:]
+    if head == "patch_embed":
+        return "patch_embed.proj"
+    for pre, name in (("enc_", "enc_blocks"), ("dec1_", "dec_blocks"), ("dec2_", "dec_blocks2")):
+        if head.startswith(pre) and head[len(pre):].isdigit():
+            return ".".join((f"{name}.{head[len(pre):]}",) + rest)
+    if head in ("head1", "head2"):
+        return f"downstream_head{head[-1]}.proj"
+    if head.startswith("local"):                       # local{v}_fc{j}
+        v, fc = head[len("local"):].split("_")
+        return f"downstream_head{v}.head_local_features.{fc}"
+    return ".".join(path)                              # enc_norm, decoder_embed, dec_norm
+
+
+def dust3r_state_dict(flat: dict) -> dict[str, torch.Tensor]:
+    """``Dust3rNet`` / ``Mast3rNet`` weights (the official DUSt3R names)
+    from the JAX package's tree: ``patch_embed`` -> ``patch_embed.proj``,
+    ``enc_i`` / ``dec1_i`` / ``dec2_i`` -> ``enc_blocks.i`` /
+    ``dec_blocks.i`` / ``dec_blocks2.i``, ``head{v}`` ->
+    ``downstream_head{v}.proj`` and MASt3R's ``local{v}_fc{j}`` ->
+    ``downstream_head{v}.head_local_features.fc{j}``."""
+    return _convert(flat, _dust3r_module)
+
+
+mast3r_state_dict = dust3r_state_dict
+
+VGG16_FEATURE_IDX = (0, 2, 5, 7, 10, 12, 14, 17, 19, 21, 24, 26, 28)
+
+
+def netvlad_state_dict(flat: dict) -> dict[str, torch.Tensor]:
+    """``NetVLADNet`` weights (pytorch-NetVlad names): ``encoder/conv_i``
+    -> ``encoder.{torchvision index}``, the soft assignment's Dense (D, K)
+    -> the 1x1 ``pool.conv`` (K, D, 1, 1), ``pool.centroids`` as is."""
+    out = _renamed(flat, {f"encoder/conv_{i}": f"encoder.{j}"
+                          for i, j in enumerate(VGG16_FEATURE_IDX)})
+    w = out.pop("pool.assign.weight")
+    out["pool.conv.weight"] = w[:, :, None, None].contiguous()
+    return out
+
+
+def megaloc_state_dict(flat: dict) -> dict[str, torch.Tensor]:
+    """``MegaLocNet`` weights: its modules carry the flax names
+    (``block_i`` ViT blocks with ``ls1`` / ``ls2``, ``cls_token``,
+    ``pos_embed``)."""
+    return _convert(flat, ".".join)
+
+
+def alexnet_state_dict(flat: dict) -> dict[str, torch.Tensor]:
+    """``AlexNetConv3`` weights (torchvision names): ``conv{j}`` ->
+    ``features.{0, 3, 6}[j]``."""
+    return _renamed(flat, {f"conv{j}": f"features.{i}" for j, i in enumerate((0, 3, 6))})

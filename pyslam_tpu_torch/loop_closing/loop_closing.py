@@ -17,14 +17,18 @@ dispatched to run asynchronously.
 
 Host bookkeeping is numpy; the matching, RANSAC, LM, pose graph and BA run
 on the device.  ``save``/``load`` carry the DB and the vocabulary with the
-system state.  The COSPLACE and EIGENPLACES detectors describe a keyframe
-by a learned global descriptor (``models.cosplace``) and the database
-scores them by similarity alone; the other learned detectors (NETVLAD,
-MEGALOC, ALEXNET, HDC_DELF) and VLAD/SAD are not ported yet.
+system state.  The score-based detectors describe a keyframe by one
+global descriptor and the database scores them by similarity alone: the
+learned COSPLACE / EIGENPLACES (``models.cosplace``), NETVLAD
+(``models.netvlad``), MEGALOC (``models.megaloc``), ALEXNET and HDC_DELF
+(``loop_closing.vpr``), and the weight-free VLAD over the keyframe's local
+descriptors and SAD over its thumbnail (``loop_closing.vlad``).  As in the
+reference, ``save``/``load`` do not carry a VLAD vocabulary.
 """
 
 from __future__ import annotations
 
+import importlib
 import os
 from collections import deque
 
@@ -51,50 +55,79 @@ from pyslam_tpu_torch.utils.logging import Printer
 from pyslam_tpu_torch.utils.padding import pad_bucket, pad_rows
 from pyslam_tpu_torch.utils.profiling import StageTimings
 
-_BOW_TYPES = (GlobalDescriptorType.DBOW2, GlobalDescriptorType.DBOW3,
-              GlobalDescriptorType.IBOW, GlobalDescriptorType.OBINDEX2)
-_VPR_TYPES = (GlobalDescriptorType.COSPLACE, GlobalDescriptorType.EIGENPLACES)
+_G = GlobalDescriptorType
+# the learned whole-image detectors: (module, extractor class)
+_VPR_EXTRACTORS = {
+    _G.NETVLAD: ("pyslam_tpu_torch.models.netvlad", "NetVLADExtractor"),
+    _G.MEGALOC: ("pyslam_tpu_torch.models.megaloc", "MegaLocExtractor"),
+    _G.ALEXNET: ("pyslam_tpu_torch.loop_closing.vpr", "AlexNetExtractor"),
+    _G.HDC_DELF: ("pyslam_tpu_torch.loop_closing.vpr", "HDCDelfExtractor"),
+    _G.COSPLACE: ("pyslam_tpu_torch.models.cosplace", "CosPlaceExtractor"),
+    _G.EIGENPLACES: ("pyslam_tpu_torch.models.cosplace", "CosPlaceExtractor"),
+}
+
+
+def _mean_descriptor(frame) -> np.ndarray:
+    """The unit mean of a frame's valid descriptors (the fallback of the
+    image detectors for a frame that kept no image)."""
+    v = np.asarray(frame.des[frame.valid], np.float32).mean(axis=0)
+    return v / max(np.linalg.norm(v), 1e-12)
 
 
 class LoopDetector:
     """A frame's descriptors for the keyframe database.  The BoW detectors
-    return (word ids, tf histogram); COSPLACE and EIGENPLACES (gmberton's
-    ResNet + GeM + Linear, one network class) return (None, global
-    descriptor) and are ``score_based``: the database ranks keyframes by
-    similarity alone.  They set ``Parameters.kRetainImageForVPR`` (for
-    every later frame of the process, as the reference does) so that
-    frames keep the half-resolution image they describe.  VLAD, SAD, the
-    other learned detectors and the pretrained vocabulary are refused."""
+    return (word ids, tf histogram) against a session-trained vocabulary,
+    or a pretrained one (``PRETRAINED``: ``extra["vocabulary_path"]``, a
+    vocabulary ``.npz`` of either package, ``HierarchicalVocabulary.load``).
+    The score-based detectors return (None, global descriptor): the learned
+    image detectors (held in ``netvlad``, the reference's name) describe
+    the frame's retained half-resolution image and set
+    ``Parameters.kRetainImageForVPR`` (for every later frame of the
+    process, as the reference does); VLAD describes its local descriptors,
+    SAD its thumbnail.  A frame without its image falls back to its mean
+    descriptor."""
 
     def __init__(self, config: LoopDetectorConfig, *, device: torch.device | str = "cuda"):
         gdt = config.global_descriptor_type
-        if gdt not in _BOW_TYPES + _VPR_TYPES:
-            raise NotImplementedError(f"the {gdt.name} loop detector is not ported yet")
-        if config.vocabulary_type == LoopDetectorVocabularyType.PRETRAINED:
-            raise NotImplementedError("the pretrained vocabulary import is not ported yet")
         self.config = config
-        if config.vocabulary_type == LoopDetectorVocabularyType.HIERARCHICAL_SESSION:
+        vt = config.vocabulary_type
+        if vt == LoopDetectorVocabularyType.PRETRAINED:
+            self.vocabulary = HierarchicalVocabulary.load(config.extra["vocabulary_path"],
+                                                          device=device)
+        elif vt == LoopDetectorVocabularyType.HIERARCHICAL_SESSION:
             self.vocabulary = HierarchicalVocabulary(branching=8, depth=4, device=device)
         else:
             self.vocabulary = BinaryVocabulary(num_words=config.num_words, device=device)
         self._trained = False
         self._train_buffer: list[np.ndarray] = []
-        self.netvlad = None   # the learned global descriptor (the reference's name)
-        if gdt in _VPR_TYPES:
-            from pyslam_tpu_torch.models.cosplace import CosPlaceExtractor
+        self.vlad = None
+        self.netvlad = None
+        if gdt == _G.VLAD:
+            from pyslam_tpu_torch.loop_closing.vlad import VladVocabulary
 
+            self.vlad = VladVocabulary(num_clusters=config.num_words, device=device)
+        if gdt in _VPR_EXTRACTORS:
+            module, cls = _VPR_EXTRACTORS[gdt]
             Parameters.kRetainImageForVPR = True
-            self.netvlad = CosPlaceExtractor(checkpoint=config.extra.get("checkpoint"),
-                                             device=device)
-        self.score_based = self.netvlad is not None
+            kw = {} if gdt == _G.HDC_DELF else {"checkpoint": config.extra.get("checkpoint")}
+            self.netvlad = getattr(importlib.import_module(module), cls)(**kw, device=device)
+        self.score_based = gdt in (_G.VLAD, _G.SAD) or self.netvlad is not None
 
     def describe_frame(self, frame):
+        gdt = self.config.global_descriptor_type
         if self.netvlad is not None:
             img = frame.img_vpr if frame.img_vpr is not None else frame.img_thumb
-            if img is not None:
-                return None, self.netvlad(img)
-            v = np.asarray(frame.des[frame.valid], np.float32).mean(axis=0)
-            return None, v / max(np.linalg.norm(v), 1e-12)
+            return None, (self.netvlad(img) if img is not None else _mean_descriptor(frame))
+        if gdt == _G.VLAD:
+            return None, self.vlad.global_descriptor(frame.dev("des"), frame.dev("valid"))
+        if gdt == _G.SAD:
+            from pyslam_tpu_torch.loop_closing.vlad import sad_descriptor
+
+            if frame.img_thumb is None:
+                return None, _mean_descriptor(frame)
+            img = torch.as_tensor(np.asarray(frame.img_thumb, np.float32)).to(
+                self.vocabulary.device)
+            return None, sad_descriptor(img).cpu().numpy()
         if (self.config.vocabulary_type == LoopDetectorVocabularyType.SESSION_TRAINED
                 and not self._trained):
             valid = frame.valid
@@ -304,6 +337,17 @@ class LoopClosing:
     def process_keyframe(self, kf: KeyFrame):
         words, g_des = self.detector.describe_frame(kf)
         kf.g_des = g_des
+        # VLAD trains on the first keyframes of the session: once it fires,
+        # re-describe every keyframe stored with the placeholder descriptor
+        vlad = self.detector.vlad
+        if vlad is not None and vlad.consume_just_trained():
+            for kid2 in list(self.db.kf_gdes):
+                kf2 = self.map.keyframes.get(kid2)
+                if kf2 is not None:
+                    g2 = vlad.global_descriptor(kf2.dev("des"), kf2.dev("valid"))
+                    self.db.kf_gdes[kid2] = g2
+                    kf2.g_des = g2
+            kf.g_des = g_des = vlad.global_descriptor(kf.dev("des"), kf.dev("valid"))
         candidates: list[int] = []
         if (kf.kid - self.last_loop_kf_id >= Parameters.kLoopDetectionMinFramesAfterLastDetection
                 and self.map.num_keyframes() > 10):

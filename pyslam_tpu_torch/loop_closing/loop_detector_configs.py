@@ -1,8 +1,7 @@
 """Loop detector configurations (host copy of
 ``pyslam_tpu/loop_closing/loop_detector_configs.py``: the enums,
 ``LoopDetectorConfig`` and the presets).  The port's ``LoopDetector``
-runs the BoW-class detectors (DBOW2, DBOW3, DBOW3_INDEPENDENT, IBOW,
-OBINDEX2) and refuses the others (see ``loop_closing.LoopDetector``).
+runs every one of them (see ``loop_closing.LoopDetector``).
 """
 
 from __future__ import annotations

@@ -15,7 +15,8 @@ keeps the first index.  A float centroid sums its members in row order, as
 the reference's scatter-add does, on the CPU and the card alike
 (``_ordered_segment_sum``).  Both vocabularies save to and load from the
 JAX package's ``.npz`` layout; a tree's ``checksum`` is the JAX package's.
-The pretrained DBoW3 import is not ported (ROADMAP.md item 4).
+``HierarchicalVocabulary.from_dbow3_text`` imports a pretrained DBoW3 text
+vocabulary into the same layout (the reference's parser, copied).
 """
 
 from __future__ import annotations
@@ -354,6 +355,51 @@ class HierarchicalVocabulary(_DocumentStats):
         )
         self.node_word = np.asarray(node_word, np.int32)
         self._finalize()
+
+    @staticmethod
+    def from_dbow3_text(path: str, *, device: torch.device | str = "cuda"
+                        ) -> "HierarchicalVocabulary":
+        """A tree on ``device`` from the DBoW3 text vocabulary format
+        (``Vocabulary.cpp load_fromtxt``): a header ``k L scoring
+        weighting``, then one node a line, ``parent_id is_leaf byte_0 ..
+        byte_{B-1} weight``, in creation order (node ids implicit, the root
+        0 exists, leaf word ids in order of appearance).  The bytes unpack
+        to 0/1 bit-planes; the leaves' weights become the fixed idf."""
+        with open(path) as f:
+            header = f.readline().split()
+            k, L = int(header[0]), int(header[1])
+            v = HierarchicalVocabulary(branching=k, depth=L, device=device)
+            centroids = [None]
+            children: list[list[int]] = [[]]
+            node_word = [-1]
+            weights = []
+            for line in f:
+                parts = line.split()
+                if len(parts) < 3:
+                    continue
+                pid, is_leaf = int(parts[0]), int(float(parts[1]))
+                byts = np.asarray([float(x) for x in parts[2:-1]], np.uint8)
+                w = float(parts[-1])
+                nid = len(centroids)
+                centroids.append(np.unpackbits(byts).astype(np.int8))
+                children.append([])
+                children[pid].append(nid)
+                if is_leaf:
+                    node_word.append(len(weights))
+                    weights.append(w)
+                else:
+                    node_word.append(-1)
+        D = len(centroids[1])
+        centroids[0] = np.zeros((D,), np.int8)
+        v.num_words = len(weights)
+        v.word_doc_count = np.zeros(v.num_words, np.int64)
+        v.word_weights = np.asarray(weights, np.float32)
+        v.centroids = np.stack(centroids)
+        width = max(k, max((len(c) for c in children), default=1))
+        v.children = np.array([ch + [-1] * (width - len(ch)) for ch in children], np.int32)
+        v.node_word = np.asarray(node_word, np.int32)
+        v._finalize()
+        return v
 
     def words_for(self, desc, valid) -> np.ndarray:
         if not self.seeded:

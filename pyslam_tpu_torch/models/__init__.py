@@ -1,8 +1,10 @@
 """Learned perception models (port of ``pyslam_tpu/models/``): SuperPoint,
-LightGlue, the ResNet trunk and CosPlace / EigenPlaces, and the learned
+LightGlue, the ResNet trunk and CosPlace / EigenPlaces, the learned
 local features XFeat, DISK, ALIKED, R2D2, D2-Net, Key.Net, LF-Net, DELF,
 the patch descriptors (HardNet, SOSNet, L2Net, TFeat, GeoDesc, the
-log-polar net) and ContextDesc.
+log-polar net) and ContextDesc, the dense two-view matchers LoFTR and
+DUSt3R / MASt3R, and the place-recognition networks NetVLAD and MegaLoc
+(over ``depth_anything_v2``'s ViT block).
 
 Each family is an ``nn.Module`` in plain PyTorch (``F.conv2d``, matrix
 products, softmax, index gathers; ALIKED's deformable convolutions are
@@ -20,8 +22,9 @@ are read by path and carried across by ``pyslam_tpu_torch.interop``; an
 official torch checkpoint loads through ``models.torch_convert`` (a key
 mapping: the modules keep the official state-dict layouts where there is
 one).  No other family has a bundled checkpoint: XFeat, DISK, ALIKED,
-R2D2, D2-Net, Key.Net, LF-Net, DELF, the patch descriptors and ContextDesc
-(and LightGlue on their 64- or 128-d descriptors) run with random weights
+R2D2, D2-Net, Key.Net, LF-Net, DELF, the patch descriptors, ContextDesc,
+LoFTR, DUSt3R / MASt3R, NetVLAD and MegaLoc (and LightGlue on 64- or
+128-d descriptors) run with random weights
 from a seeded ``torch.Generator`` and report ``trained = False`` until an
 official checkpoint (or the JAX package's ``.npz`` for the TF1-era LF-Net,
 DELF, GeoDesc and ContextDesc) is given.  The JAX package draws its random

@@ -96,6 +96,33 @@ def rgb_image(img, device) -> torch.Tensor:
     return t if t.dim() == 3 else t[..., None].expand(*t.shape, 3)
 
 
+def truncation_resample(img: np.ndarray, hw) -> np.ndarray:
+    """(H, W[, C]) host image -> (h, w[, C]) by nearest sampling at
+    ``floor(i * H / h)`` (the host resampling the JAX package's dense
+    matchers and VPR networks apply before their fixed-size network)."""
+    h, w = hw
+    ys = np.clip((np.arange(h) * img.shape[0] / h).astype(int), 0, img.shape[0] - 1)
+    xs = np.clip((np.arange(w) * img.shape[1] / w).astype(int), 0, img.shape[1] - 1)
+    return img[np.ix_(ys, xs)]
+
+
+_IMAGENET_MEAN = np.array([0.485, 0.456, 0.406])
+_IMAGENET_STD = np.array([0.229, 0.224, 0.225])
+
+
+def imagenet_square(img, px: int) -> np.ndarray:
+    """The MegaLoc / AlexNet host pre-processing: grey -> 3 channels, a
+    ``px`` square by ``truncation_resample``, /255 when 8-bit valued,
+    ImageNet normalisation in float64, then float32."""
+    img = np.asarray(img, np.float32)
+    if img.ndim == 2:
+        img = np.repeat(img[..., None], 3, axis=2)
+    x = truncation_resample(img, (px, px))
+    if x.max() > 2.0:
+        x = x / 255.0
+    return np.ascontiguousarray((x - _IMAGENET_MEAN) / _IMAGENET_STD, np.float32)
+
+
 def l2_normalize(d: torch.Tensor, dim: int = -1, eps: float = 1e-9) -> torch.Tensor:
     """d / max(|d|, eps) along ``dim``."""
     return d / torch.clamp(torch.linalg.vector_norm(d, dim=dim, keepdim=True), min=eps)

@@ -2,7 +2,9 @@
 ``pyslam_tpu/models/torch_convert.py``, ``resnet.py:154-192``,
 ``cosplace.py:57-101`` and the ``*_from_torch`` converters of the learned
 local-feature modules: ``patch_descriptors.py:200-290``, ``disk.py:79``,
-``aliked.py:227``, ``r2d2.py:96``, ``d2net.py:61``, ``keynet.py:97``).
+``aliked.py:227``, ``r2d2.py:96``, ``d2net.py:61``, ``keynet.py:97``, and
+of the dense matchers and VPR networks: ``loftr.py:281``,
+``torch_convert.py:225-329``).
 
 The port's modules keep the official layouts, so each conversion is a key
 mapping, not a layout change: MagicLeap's ``conv1a..convDb`` and
@@ -13,7 +15,8 @@ CosPlace / EigenPlaces hub checkpoint has its Sequential backbone renamed
 and its GeM ``p`` and linear head found by shape.  XFeat, ALIKED and R2D2
 load with their own keys; the L2Net-class patch nets, TFeat, DISK and
 Key.Net are mapped by the order of their layers, as the JAX package maps
-them, and D2-Net loses its module prefix.  Nothing is downloaded:
+them, and D2-Net loses its module prefix.  LoFTR, DUSt3R / MASt3R and
+NetVLAD keep their official names.  Nothing is downloaded:
 the caller names the file.
 """
 
@@ -192,3 +195,25 @@ def keynet_from_torch(state_dict) -> dict[str, torch.Tensor]:
     out["last_conv.weight"] = sd[last]
     out["last_conv.bias"] = sd[last[: -len("weight")] + "bias"]
     return out
+
+
+# ------------------------------------------- dense matchers and VPR networks
+def loftr_from_torch(state_dict) -> dict[str, torch.Tensor]:
+    """An official LoFTR checkpoint (``matcher.`` prefix optional) ->
+    ``LoFTRNet`` weights: the port keeps the official names; the position
+    encoding's buffer and the batch counters are dropped."""
+    sd = {k[len("matcher."):] if k.startswith("matcher.") else k: v
+          for k, v in state_dict.items()}
+    return _plain(sd, ("pos_encoding.",))
+
+
+def dust3r_from_torch_file(path: str) -> dict[str, torch.Tensor]:
+    """An official DUSt3R / MASt3R linear-head checkpoint (weights under
+    ``model``) -> ``Dust3rNet`` / ``Mast3rNet`` weights (the same names)."""
+    return _plain(load_torch_file(path, "model"))
+
+
+def netvlad_from_torch_file(path: str) -> dict[str, torch.Tensor]:
+    """A pytorch-NetVlad checkpoint (``encoder.<i>``, ``pool.conv``,
+    ``pool.centroids``) -> ``NetVLADNet`` weights (the same names)."""
+    return _plain(load_torch_file(path))

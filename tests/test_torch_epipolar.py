@@ -16,9 +16,13 @@ float32, which squares the condition number of A.  Where the second
 smallest eigenvalue of AᵀA is below 1e-5 of the largest (about 100 float32
 epsilons; about 85 % of the hypotheses here) the null vector is
 float32 noise in both packages, and their inlier counts for that hypothesis
-differ by up to 182 of 300 rows.  So: on the hypotheses above that line the
-inlier counts agree within 2 % of the correspondences (measured 5 of 300 at
-most); end to end, over 8 seeds, the inlier counts within 10 % (measured 21
+differ by up to 182 of 300 rows.  So: on the hypotheses above that line
+each package's float32 inlier count is held to the float64 count of the
+same samples (``_eight_point`` on the float64 points), within 2 % of the
+correspondences (measured 4 of 300 at most for the JAX package, 5 for the
+port), and the port's mean deviation within 1 % (measured 0.59 at most).
+The two float32 counts lie on either side of the float64 one, so their
+difference is the sum of two such errors (9 of 300 on seed 1); end to end, over 8 seeds, the inlier counts within 10 % (measured 21
 of 300), rotation within 2e-2 rad (measured 1.5e-2), the unit translation
 within 0.15 (measured 0.117) and the median seed's rotation within 1e-3 rad
 (measured 2.3e-4; 0 on 3 seeds).  An end-to-end 1e-4 is not met for
@@ -140,9 +144,15 @@ def test_essential_hypotheses_with_the_reference_samples(seed):
     Ep = epipolar._eight_point(x1[st], x2[st])
     got = torch.sum((epipolar._sampson_error(Ep, x1, x2) < TH_E) & torch.from_numpy(valid)[None],
                     1).numpy()
-    good = _well_conditioned(epipolar._epipolar_rows(x1.double()[st], x2.double()[st]))
+    x1d, x2d, vt = x1.double(), x2.double(), torch.from_numpy(valid)[None]
+    E64 = epipolar._eight_point(x1d[st], x2d[st])
+    exact = torch.sum((epipolar._sampson_error(E64, x1d, x2d) < TH_E) & vt, 1).numpy()
+    good = _well_conditioned(epipolar._epipolar_rows(x1d[st], x2d[st]))
     assert good.sum() >= 30
-    assert np.abs(got - ref)[good].max() <= 0.02 * valid.sum()
+    dev_ref, dev_port = np.abs(ref - exact)[good], np.abs(got - exact)[good]
+    assert dev_ref.max() <= 0.02 * valid.sum(), (seed, dev_ref.max())
+    assert dev_port.max() <= 0.02 * valid.sum(), (seed, dev_port.max())
+    assert dev_port.mean() <= 0.01 * valid.sum(), (seed, dev_port.mean())
 
 
 def test_find_essential_with_the_reference_samples():

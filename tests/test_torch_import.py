@@ -29,7 +29,11 @@ def test_import_loads_no_jax():
         "import pyslam_tpu_torch.evaluation.manager, pyslam_tpu_torch.evaluation.report_formats\n"
         "import pyslam_tpu_torch.slam.map_serialization, pyslam_tpu_torch.slam.map_serialization_ref\n"
         "import pyslam_tpu_torch.main_slam, pyslam_tpu_torch.main_vo\n"
-        "import pyslam_tpu_torch.main_slam_evaluation\n"
+        "import pyslam_tpu_torch.main_slam_evaluation, pyslam_tpu_torch.main_feature_matching\n"
+        "import pyslam_tpu_torch.models.loftr, pyslam_tpu_torch.models.dust3r\n"
+        "import pyslam_tpu_torch.models.mast3r, pyslam_tpu_torch.models.netvlad\n"
+        "import pyslam_tpu_torch.models.megaloc, pyslam_tpu_torch.models.depth_anything_v2\n"
+        "import pyslam_tpu_torch.loop_closing.vpr, pyslam_tpu_torch.loop_closing.vlad\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
         "or m == 'pyslam_tpu' or m.startswith('pyslam_tpu.')]\n"
         "assert not bad, bad\n"
@@ -100,6 +104,17 @@ def test_import_builds_nothing():
                                   "models.superpoint.SuperPointExtractor",
                                   "models.lightglue.LightGlueMatcher",
                                   "models.cosplace.CosPlaceExtractor",
+                                  "models.loftr.LoFTRMatcher",
+                                  "models.dust3r.Dust3rModel",
+                                  "models.mast3r.Mast3rModel",
+                                  "models.netvlad.NetVLADExtractor",
+                                  "models.megaloc.MegaLocExtractor",
+                                  "loop_closing.vpr.AlexNetExtractor",
+                                  "loop_closing.vpr.HDCDelfExtractor",
+                                  "loop_closing.vlad.VladVocabulary",
+                                  "loop_closing.vocabulary.HierarchicalVocabulary.from_dbow3_text",
+                                  "features.tracker.Mast3rFeatureTracker",
+                                  "features.tracker.LoftrFeatureTracker",
                                   "features.matcher.LightGlueFeatureMatcher"])
 def test_entry_points_default_to_the_card(name):
     """The entry points run on the card unless the caller asks for the CPU;
@@ -146,39 +161,56 @@ def test_loop_closing_slam_runs_on_the_card():
 
 @pytest.mark.parametrize("preset", ["VLAD", "SAD", "NETVLAD", "COSPLACE", "EIGENPLACES",
                                     "MEGALOC", "ALEXNET", "HDC_DELF", "PRETRAINED"])
-def test_detector_refuses_what_is_not_ported(preset):
-    """The learned VPR detectors other than COSPLACE and EIGENPLACES, VLAD,
-    SAD and the pretrained vocabulary raise NotImplementedError.  COSPLACE
-    and EIGENPLACES (ported) build on the CPU with trained weights and
-    describe one frame by a unit global descriptor and no words."""
+def test_detector_refuses_what_is_not_ported(preset, tmp_path):
+    """Nothing is refused any more: every detector preset of the JAX
+    package and the pretrained vocabulary build on the CPU.  The
+    score-based ones describe a frame by a unit global descriptor and no
+    words (the image detectors set ``kRetainImageForVPR``; COSPLACE and
+    EIGENPLACES with the bundled trained weights, the others seeded random
+    ones); ``PRETRAINED`` loads ``extra["vocabulary_path"]`` (a vocabulary
+    this test trains and saves) and describes it by its words."""
     import dataclasses
     from types import SimpleNamespace
 
     import numpy as np
+    import torch
 
     from pyslam_tpu_torch.config_parameters import Parameters
     from pyslam_tpu_torch.loop_closing.loop_closing import LoopDetector
     from pyslam_tpu_torch.loop_closing.loop_detector_configs import (
         LoopDetectorConfigs, LoopDetectorVocabularyType)
+    from pyslam_tpu_torch.loop_closing.vocabulary import HierarchicalVocabulary
 
+    r = np.random.default_rng(0)
+    des = r.integers(0, 2, (300, 256)).astype(np.int8)
+    valid = np.ones(300, bool)
     if preset == "PRETRAINED":
+        voc = HierarchicalVocabulary(branching=4, depth=3, device="cpu")
+        voc.words_for(des, valid)
+        voc.save(str(tmp_path / "voc.npz"))
         cfg = dataclasses.replace(LoopDetectorConfigs.DBOW3,
-                                  vocabulary_type=LoopDetectorVocabularyType.PRETRAINED)
+                                  vocabulary_type=LoopDetectorVocabularyType.PRETRAINED,
+                                  extra={"vocabulary_path": str(tmp_path / "voc.npz")})
     else:
         cfg = LoopDetectorConfigs.get(preset)
-    if preset not in ("COSPLACE", "EIGENPLACES"):
-        with pytest.raises(NotImplementedError):
-            LoopDetector(cfg, device="cpu")
-        return
     saved = Parameters.kRetainImageForVPR
     try:
         det = LoopDetector(cfg, device="cpu")
-        assert det.score_based and det.netvlad.trained and Parameters.kRetainImageForVPR
+        assert Parameters.kRetainImageForVPR == (det.netvlad is not None or saved)
     finally:
         Parameters.kRetainImageForVPR = saved
-    img = np.random.default_rng(0).uniform(0, 255, (60, 80)).astype(np.uint8)
-    words, g = det.describe_frame(SimpleNamespace(img_vpr=img, img_thumb=None))
-    assert words is None and g.shape == (det.netvlad.out_dim,)
+    img = r.uniform(0, 255, (120, 160)).astype(np.uint8)
+    tdes, tvalid = torch.from_numpy(des), torch.from_numpy(valid)
+    frame = SimpleNamespace(img_vpr=img, img_thumb=img[:64].astype(np.float32), des=des,
+                            valid=valid, dev=lambda name: {"des": tdes, "valid": tvalid}[name])
+    words, g = det.describe_frame(frame)
+    if preset == "PRETRAINED":
+        assert not det.score_based and det.vocabulary.checksum() == voc.checksum()
+        np.testing.assert_array_equal(words, voc.words_for(des, valid))
+        return
+    assert det.score_based and words is None
+    if preset in ("COSPLACE", "EIGENPLACES"):
+        assert det.netvlad.trained and g.shape == (det.netvlad.out_dim,)
     assert abs(np.linalg.norm(g) - 1.0) < 1e-5
 
 
@@ -278,14 +310,16 @@ def test_weight_free_preset_builds(name):
 
 
 @pytest.mark.parametrize("name", [n for n in _presets() if n not in _weight_free()])
-def test_learned_preset_refused(name):
-    """The learned presets that are not ported (the dense matchers LOFTR
-    and MAST3R) name the slice that brings them.  The ported ones
-    (``PORTED_PRESETS``) build on the CPU through the factory, with the
+def test_learned_preset_refused(name, monkeypatch):
+    """No learned preset is refused any more: every one is in
+    ``PORTED_PRESETS`` and builds on the CPU through the factory, with the
     JAX package's bundled weights (SUPERPOINT, LIGHTGLUE: ``trained``) or
     seeded random ones (the others: not ``trained``), at 256 keypoint
-    slots, and match a frame to a shifted copy of itself once; the
-    descriptors have the preset's width (``DESCRIPTOR_WIDTH``)."""
+    slots, and matches a frame to a shifted copy of itself once; the
+    descriptors have the preset's width (``DESCRIPTOR_WIDTH``).  MAST3R
+    runs its two-view network at a small width here (desc_dim 24), LOFTR
+    (detector-free: ``detectAndCompute`` raises) at its full width on a
+    64x96 input, through ``track_pair``."""
     import dataclasses
 
     import numpy as np
@@ -298,12 +332,16 @@ def test_learned_preset_refused(name):
     )
     from pyslam_tpu_torch.features.types import DESCRIPTOR_WIDTH
 
-    if name not in PORTED_PRESETS:
-        with pytest.raises(ValueError, match="learned-model slice"):
-            feature_tracker_factory(name, device="cpu")
-        return
+    assert name in PORTED_PRESETS
     cfg = FeatureTrackerConfigs.get(name)
-    tracker = feature_tracker_factory(dataclasses.replace(cfg, num_features=256),
+    if name == "MAST3R":
+        from pyslam_tpu_torch.models import mast3r
+
+        tiny = mast3r.Mast3rConfig(img_hw=(64, 64), patch=16, enc_dim=32, enc_depth=2,
+                                   enc_heads=2, dec_dim=48, dec_depth=2, dec_heads=2)
+        monkeypatch.setattr(mast3r.Mast3rModel, "default_config", staticmethod(lambda: tiny))
+    small = {"extra": {"img_hw": (64, 96)}} if name == "LOFTR" else {}
+    tracker = feature_tracker_factory(dataclasses.replace(cfg, num_features=256, **small),
                                       device="cpu")
     assert tracker.device.type == "cpu"
     assert tracker.trained == (name in ("SUPERPOINT", "LIGHTGLUE"))
@@ -315,6 +353,12 @@ def test_learned_preset_refused(name):
     for _ in range(30):
         y, x = r.integers(8, 100), r.integers(8, 140)
         img[y:y + 12, x:x + 12] = r.uniform(120, 250)
+    if name == "LOFTR":
+        with pytest.raises(NotImplementedError):
+            tracker.detectAndCompute(img)
+        xy1, xy2, conf = tracker.track_pair(img, np.roll(img, 2, axis=1))
+        assert xy1.shape == xy2.shape and xy1.shape[1] == 2 and conf.shape == (len(xy1),)
+        return
     f1 = tracker.detectAndCompute(img)
     f2 = tracker.detectAndCompute(np.roll(img, 2, axis=1))
     width = DESCRIPTOR_WIDTH[cfg.descriptor_type]

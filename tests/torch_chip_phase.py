@@ -3,9 +3,12 @@
 written to disk, then the saved state reloaded), 14 (the learned models:
 the SuperPoint session, the LightGlue VO and the COSPLACE loop stage) or 15
 (the learned local features: each model card against CPU and its times,
-the learned presets' stereo sessions and the XFEAT_LIGHTGLUE VO).
+the learned presets' stereo sessions and the XFEAT_LIGHTGLUE VO) or 16
+(LoFTR, MASt3R / DUSt3R and the MAST3R session, the other loop detectors
+card against CPU, and the VLAD loop stage; ``16abc`` leaves the loop stage
+out).
 
-    PYTHONPATH=. python3 tests/torch_chip_phase.py 8|12|13|14|15
+    PYTHONPATH=. python3 tests/torch_chip_phase.py 8|12|13|14|15|16|16abc
 
 Builds the kernels, renders the phase's frames as chip_smoke.py does and
 runs its function for the phase; prints what the phase prints.  Run from
@@ -27,7 +30,8 @@ def main():
     from pyslam_tpu_torch import _build
     from pyslam_tpu_torch.slam.camera import PinholeCamera
 
-    phase = int(sys.argv[1])
+    arg = sys.argv[1]
+    phase = int(arg[:2]) if arg.startswith("16") else int(arg)
     dev = torch.device("cuda", 0)
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -49,8 +53,8 @@ def main():
         frames = [(ds.getImage(i), ds.getImageRight(i), ds.getTimestamp(i))
                   for i in range(cs.N_FRAMES)]
         t0 = time.time()
-        print(json.dumps({"features": cs.features_phase(dev, frames, cam, ds)}, default=float),
-              flush=True)
+        print(json.dumps({"features": cs.features_phase(dev, frames[:cs.PRESET_FRAMES], cam,
+                                                        ds)}, default=float), flush=True)
     elif phase == 14:
         from pyslam_tpu_torch.config_parameters import Parameters
 
@@ -88,8 +92,24 @@ def main():
                        dev, rgbd_frames, cam_mono, cs.bench_stream("RGBD"),
                        preset="XFEAT_LIGHTGLUE")}
         print(json.dumps({"learned": learned}, default=float), flush=True)
+    elif phase == 16:
+        cam = PinholeCamera(ds.w, ds.h, ds.fx, ds.fy, ds.cx, ds.cy, fps=ds.fps,
+                            bf=ds.fx * ds.baseline, depth_threshold=35.0)
+        frames = [(ds.getImage(i), ds.getImageRight(i), ds.getTimestamp(i))
+                  for i in range(cs.MAST3R_FRAMES)]
+        rgbd_frames = cs.render(cs.render_rgbd_frames, 3)
+        t0 = time.time()
+        dense = {"loftr": cs.loftr_phase(dev, rgbd_frames),
+                 "mast3r": cs.mast3r_phase(dev, frames, cam, ds),
+                 "vpr": cs.vpr_phase(dev, frames)}
+        if arg == "16":
+            loop_frames = cs.render(cs.render_loop_frames, cs.LOOP_FRAMES)
+            vl = dense["vlad_stage"] = cs.loop_phase(
+                dev, (ds.w, ds.h, ds.fx, ds.fy, ds.cx, ds.cy), loop_frames, loop="VLAD")
+            assert vl["loops_closed"] >= cs.VLAD_MIN_LOOPS, vl
+        print(json.dumps({"dense": dense}, default=float), flush=True)
     else:
-        raise SystemExit(f"phase {phase}: only 8, 12, 13, 14 and 15 run alone")
+        raise SystemExit(f"phase {phase}: only 8, 12, 13, 14, 15 and 16 run alone")
     print(f"phase {phase}: {time.time() - t0:.1f} s", flush=True)
 
 

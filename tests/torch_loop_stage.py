@@ -1,20 +1,26 @@
 """bench.py's loop stage on the CPU, in the JAX package or in the port.
 
     python -m tests.torch_loop_stage [--package jax|port] [--frames 150] [--trace]
-                                     [--loop DBOW3|COSPLACE|...]
+                                     [--loop DBOW3|COSPLACE|VLAD|...] [--candidates]
 
 Runs chip_smoke.py's phase 8 configuration (bench.py:193-267: 150 frames of
 the 376x1241 stereo circle, period 130, a 16000-point world of extent 30 m,
 2000 ORB2 features on 8 levels, depth threshold 35, the DBOW3 detector, or
-the ``--loop`` detector: COSPLACE for phase 14c) one frame at a time with
+the ``--loop`` detector: COSPLACE for phase 14c, VLAD for 16d) one frame at a time with
 next-frame prefetch, the JAX package with x64 off as it runs outside the
 tests.  Prints each frame whose tracking fails or that is
 relocalised, each loop closure with the ATE of the trajectory so far just
 before and after its correction, and at the end the frames tracked, loops
 closed, GBAs applied and the final ATE.  With ``--trace`` it also prints,
 from the loop closure on, each local BA applied: the largest keyframe
-translation it made and the observations before and after it.  A witness
-for the port's phases 8 and 14c: it tells a property of the reference from a fault
+translation it made and the observations before and after it.  With
+``--candidates`` it prints, for each keyframe the detector queries, its
+connected keyframes, the candidates the database proposes and the five
+stored keyframes of highest global-descriptor similarity, the consistent
+candidates and each geometry check's outcome (phase 16d's VLAD: the most
+similar stored keyframes score 0.18-0.28 over 125 frames, no higher than
+the covisible neighbours).  A witness
+for the port's phases 8, 14c and 16d: it tells a property of the reference from a fault
 of the port.
 """
 
@@ -32,6 +38,7 @@ def main():
     ap.add_argument("--frames", type=int, default=chip_smoke.LOOP_FRAMES)
     ap.add_argument("--trace", action="store_true")
     ap.add_argument("--loop", default="DBOW3")
+    ap.add_argument("--candidates", action="store_true")
     args = ap.parse_args()
     if args.package == "jax":
         import jax
@@ -93,6 +100,8 @@ def main():
 
     if args.trace:
         lm._lba_apply = traced_lba_apply
+    if args.candidates:
+        trace_candidates(lc)
     t0 = time.perf_counter()
     frame = lambda j: (ds.getImage(j), ds.getImageRight(j), ds.getTimestamp(j))  # noqa: E731
     cur = frame(0)
@@ -114,6 +123,37 @@ def main():
           f"{lc.num_loops_closed} loops closed, {slam.GBA.runs_completed} GBA applied, "
           f"{slam.map.num_keyframes()} keyframes, ATE {ate():.4f} m "
           f"({time.perf_counter() - t0:.0f} s)", flush=True)
+
+
+def trace_candidates(lc):
+    """Wrap the loop closer's database query, consistency check and
+    geometry check of either package to print what each returns."""
+    detect, check, geometry = (lc.db.detect_loop_candidates, lc.consistency.check,
+                               lc.geometry_check)
+
+    def detect_loop_candidates(kid, words, g_des, connected, covisibles_of, *a, **kw):
+        out = detect(kid, words, g_des, connected, covisibles_of, *a, **kw)
+        sims = sorted(((float(np.dot(g_des, g)), c) for c, g in lc.db.kf_gdes.items()),
+                      reverse=True)[:5]
+        print(f"kf {kid}: connected {sorted(connected)} candidates {out} most similar "
+              f"{[(c, round(v, 3)) for v, c in sims]}", flush=True)
+        return out
+
+    def consistency_check(candidates, group_of):
+        out = check(candidates, group_of)
+        if candidates:
+            print(f"  consistent {out} of {candidates}", flush=True)
+        return out
+
+    def geometry_check(kf, cand):
+        res = geometry(kf, cand)
+        print(f"  geometry kf {kf.kid} with kf {cand.kid}: ok {res[0]}, {res[2]} matches",
+              flush=True)
+        return res
+
+    lc.db.detect_loop_candidates = detect_loop_candidates
+    lc.consistency.check = consistency_check
+    lc.geometry_check = geometry_check
 
 
 if __name__ == "__main__":
