@@ -7,10 +7,13 @@ stage on the device: the depth estimate of the next queued keyframe (SGM
 on its stereo pair), then one of ``_TSDF_PHASES`` row-interleaved TSDF
 updates on each following call.  The schedule is the reference's, so the
 CPU, the card and the reference hold the same volume after the same
-frames.  With an estimated depth the depth stays on the device from SGM to
-the TSDF and is dropped after the last phase; ``rebuild`` re-estimates it.
-The semantic and Gaussian-splatting integrators are not ported
-(ROADMAP.md item 12).
+frames.  With an SGM depth the depth stays on the device from SGM to the
+TSDF and is dropped after the last phase; ``rebuild`` re-estimates it.  An
+estimator without a device path (a monocular network, or a stereo one
+given no right image) gives a host depth, kept with the snapshot, whose
+first TSDF phase runs in the same call.  The semantic and
+Gaussian-splatting integrators are not ported (ROADMAP.md section 1, items
+3.4 and 4.1).
 """
 
 from __future__ import annotations
@@ -124,16 +127,25 @@ class VolumetricIntegrator:
         if snap.depth is None:
             if self._depth_provider is None or snap.intensity is None:
                 return
-            # the depth stays on the device and flows into the TSDF
-            with self.timings.stage("sgm"):
-                depth_dev = self._depth_provider.infer_depth_device(
-                    snap.intensity, img_right=snap.img_right)
-            if split:
-                # the TSDF phases run on the next step() calls
-                self._staged = (snap, depth_dev, 0, True)
-                return
-            snap.depth = depth_dev
-            estimated_on_device = True
+            if snap.img_right is not None and hasattr(self._depth_provider,
+                                                      "infer_depth_device"):
+                # the depth stays on the device and flows into the TSDF
+                with self.timings.stage("sgm"):
+                    depth_dev = self._depth_provider.infer_depth_device(
+                        snap.intensity, img_right=snap.img_right)
+                if split:
+                    # the TSDF phases run on the next step() calls
+                    self._staged = (snap, depth_dev, 0, True)
+                    return
+                snap.depth = depth_dev
+                estimated_on_device = True
+            else:
+                # an estimator without a device path (a monocular network):
+                # its host depth, non-finite values invalid
+                with self.timings.stage("depth"):
+                    depth, _ = self._depth_provider.infer(snap.intensity,
+                                                          img_right=snap.img_right)
+                snap.depth = np.where(np.isfinite(depth), depth, 0.0).astype(np.float32)
         if split and self._TSDF_PHASES > 1:
             # a host depth is phased too: phase 0 now, the rest staged
             self._staged = (snap, snap.depth, 1, estimated_on_device)
@@ -200,8 +212,9 @@ def volumetric_integrator_factory(integrator_type=VolumetricIntegratorType.TSDF,
         integrator_type = VolumetricIntegratorType(integrator_type.lower())
     if integrator_type not in (VolumetricIntegratorType.TSDF,
                                VolumetricIntegratorType.VOXEL_GRID):
+        item = "4.1" if integrator_type == VolumetricIntegratorType.GAUSSIAN_SPLATTING else "3.4"
         raise NotImplementedError(f"integrator {integrator_type.name} is not ported yet "
-                                  "(ROADMAP.md item 12)")
+                                  f"(ROADMAP.md section 1 item {item})")
     depth_trunc = (Parameters.kVolumetricIntegrationDepthTruncOutdoor
                    if getattr(environment_type, "name", "") == "OUTDOOR"
                    else Parameters.kVolumetricIntegrationDepthTruncIndoor)
@@ -209,7 +222,8 @@ def volumetric_integrator_factory(integrator_type=VolumetricIntegratorType.TSDF,
     integ = VolumetricIntegrator(camera, integrator_type, vol, device=device)
     if Parameters.kVolumetricIntegrationUseDepthEstimator:
         # estimate dense depth inside the integrator for sensors without
-        # native depth (stereo -> SGM)
+        # native depth (stereo -> SGM by default, monocular -> the
+        # configured network)
         from pyslam_tpu_torch.depth_estimation.depth_estimator import depth_estimator_factory
 
         est_type = Parameters.kVolumetricIntegrationDepthEstimatorType

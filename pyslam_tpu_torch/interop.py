@@ -18,7 +18,10 @@ the log-polar net), ``tfeat_state_dict``, ``xfeat_state_dict``,
 (GeoDesc, DISK, D2-Net, Key.Net, LF-Net, DELF, ContextDesc), and the
 dense matchers' and VPR networks' ``loftr_state_dict``,
 ``dust3r_state_dict`` / ``mast3r_state_dict``, ``netvlad_state_dict``,
-``megaloc_state_dict`` and ``alexnet_state_dict`` take the JAX
+``megaloc_state_dict`` and ``alexnet_state_dict``, and the depth
+models' ``dpt_lite_state_dict``, ``depth_anything_v2_state_dict``,
+``da3_state_dict``, ``depth_pro_state_dict``, ``raft_stereo_state_dict``,
+``crestereo_state_dict`` and ``mvdust3r_state_dict`` take the JAX
 package's flat parameters (the ``params/...`` keys of its ``.npz``
 checkpoints, numpy arrays, as ``pyslam_tpu/models/torch_convert.py``
 flattens them) and return the port's ``state_dict``: a flax convolution
@@ -341,3 +344,15 @@ def alexnet_state_dict(flat: dict) -> dict[str, torch.Tensor]:
     """``AlexNetConv3`` weights (torchvision names): ``conv{j}`` ->
     ``features.{0, 3, 6}[j]``."""
     return _renamed(flat, {f"conv{j}": f"features.{i}" for j, i in enumerate((0, 3, 6))})
+
+
+# the depth models carry the flax names (a GroupNorm's ``scale`` becomes
+# its ``weight``): DPT-lite, DepthAnythingV2 / V3, DepthPro, RAFT-Stereo,
+# CREStereo and MV-DUSt3R
+dpt_lite_state_dict = same_names_state_dict
+depth_anything_v2_state_dict = same_names_state_dict
+da3_state_dict = same_names_state_dict
+depth_pro_state_dict = same_names_state_dict
+raft_stereo_state_dict = same_names_state_dict
+crestereo_state_dict = same_names_state_dict
+mvdust3r_state_dict = same_names_state_dict

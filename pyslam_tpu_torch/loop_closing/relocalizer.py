@@ -34,6 +34,9 @@ class Relocalizer:
         self.device = torch.device(device)
         self.sampler = sampler if sampler is not None else generator_sampler(self.device, 7)
         self._frame_words = None   # words of the frame being relocalised
+        # the last call's candidates: (kid, matches, PnP inliers, final
+        # inliers), -1 where the candidate stopped before that step
+        self.trace: list[tuple[int, int, int, int]] = []
 
     def _candidates(self, frame, slam_map) -> list[int]:
         self._frame_words = None
@@ -75,6 +78,7 @@ class Relocalizer:
             return torch.as_tensor(np.asarray(x, dtype)).to(dev)
 
         K = put(cam.K)
+        self.trace = []
         for kid in self._candidates(frame, slam_map):
             kf = slam_map.keyframes.get(kid)
             if kf is None:
@@ -107,6 +111,7 @@ class Relocalizer:
                     valid_b=frame.dev("valid"))
                 idx = idx.cpu().numpy()
             rows = np.nonzero(idx >= 0)[0]
+            self.trace.append((int(kid), len(rows), -1, -1))
             if len(rows) < Parameters.kRelocalizationMinPnPInliers:
                 continue
             kp_idx = idx[rows]
@@ -118,6 +123,7 @@ class Relocalizer:
             T, inl_mask, n_inl = pnp.solve_pnp_ransac(
                 put(p3d_p), put(xy_p), valid_t, 5.99 / cam.fx ** 2, n_hyp,
                 samples=self.sampler(valid_t, n_hyp, 6, None))
+            self.trace[-1] = (int(kid), len(rows), int(n_inl), -1)
             if int(n_inl) < Parameters.kRelocalizationMinPnPInliers:
                 continue
 
@@ -157,6 +163,7 @@ class Relocalizer:
                 put(pad_rows(frame.sigma2_for(slots), m, fill=1.0)), put(valid, bool), K,
                 bf=cam.bf)
             inliers = inliers.cpu().numpy()[: len(slots)]
+            self.trace[-1] = (int(kid), len(rows), int(n_inl), int(inliers.sum()))
             if inliers.sum() >= Parameters.kRelocalizationFinalMinNumInliers * 0.5:
                 T_opt = T_opt.cpu().numpy()
                 frame.update_pose(T_opt)

@@ -11,8 +11,15 @@ system state (``map.json`` and the rest, with ``other_metrics_info.txt``).
     python -m pyslam_tpu_torch.main_slam --sensor rgbd --frames 120 --device cpu
 
 It runs on the card (``--device cuda``, the default) unless ``--device
-cpu`` is given.  ``--viewer``, ``--semantics`` and a learned
-``--depth_estimator`` are refused with the ROADMAP.md item each waits on.
+cpu`` is given.  ``--depth_estimator TYPE`` on a monocular stream upgrades
+the session to RGBD with that estimator's per-frame depth (as the
+reference's ``main_slam.py``); on a stereo stream with ``--volumetric`` it
+is the integrator's estimator.  A stereo estimator (``sgbm``, or
+``raft_stereo`` / ``crestereo`` routed to it without weights) needs the
+right image: the synthetic demo stream renders it for ``--sensor mono``
+(the reference's stream has none and its SGBM stops there), a configured
+monocular dataset without one is refused.  ``--viewer`` and
+``--semantics`` are refused with the ROADMAP.md item each waits on.
 """
 
 from __future__ import annotations
@@ -39,9 +46,9 @@ from pyslam_tpu_torch.utils.logging import Printer
 from pyslam_tpu_torch.utils.timer import TimerFps
 
 SENSORS = {"mono": SensorType.MONOCULAR, "stereo": SensorType.STEREO, "rgbd": SensorType.RGBD}
-VIEWER_ITEM = "ROADMAP.md item 4 (viz/: html_viewer, live_viewer, viewer3d)"
-SEMANTICS_ITEM = "ROADMAP.md item 4 (semantics/ and dense/semantic_volume.py)"
-LEARNED_ITEM = "ROADMAP.md item 3 (learned models with bundled weights)"
+VIEWER_ITEM = "ROADMAP.md section 1 item 4.2 (viz/: html_viewer, live_viewer, viewer3d)"
+SEMANTICS_ITEM = ("ROADMAP.md section 1 item 3.4 (the semantic models, semantics/ and "
+                  "dense/semantic_volume.py)")
 # latency percentiles skip the first frames (initialisation, first keyframes)
 LATENCY_SKIP = 10
 
@@ -68,9 +75,10 @@ def _parser() -> argparse.ArgumentParser:
                     help="run TSDF integration on keyframes (rgbd natively; stereo through "
                          "the integrator's SGM depth)")
     ap.add_argument("--depth_estimator", default=None, metavar="TYPE",
-                    help="the integrator's depth estimator for --volumetric on stereo "
-                         "(sgbm); the learned estimators and the monocular upgrade to "
-                         f"RGBD wait on {LEARNED_ITEM}")
+                    help="a DepthEstimatorType value (sgbm, depth_anything_v2, "
+                         "depth_anything_v3, depth_pro, raft_stereo, crestereo, mast3r, "
+                         "mvdust3r): upgrades a monocular session to RGBD, and is the "
+                         "integrator's estimator for --volumetric on stereo or mono")
     ap.add_argument("--semantics", action="store_true",
                     help=f"not ported: {SEMANTICS_ITEM}")
     ap.add_argument("--save_state", default=None, help="folder for map.json")
@@ -96,9 +104,20 @@ def main(argv=None) -> int:
         ap.error(f"--viewer is not ported yet: {VIEWER_ITEM}")
     if args.semantics:
         ap.error(f"--semantics is not ported yet: {SEMANTICS_ITEM}")
-    if args.depth_estimator and args.depth_estimator.lower() != "sgbm":
-        ap.error(f"--depth_estimator {args.depth_estimator} is not ported yet: {LEARNED_ITEM}")
     device = check_device(ap, args.device)
+    stereo_estimator = False
+    if args.depth_estimator:
+        from pyslam_tpu_torch.depth_estimation.depth_estimator import DepthEstimatorType
+
+        try:
+            est_type = DepthEstimatorType(args.depth_estimator.lower())
+        except ValueError:
+            ap.error(f"--depth_estimator {args.depth_estimator}: one of "
+                     f"{', '.join(t.value for t in DepthEstimatorType)}")
+        stereo_estimator = est_type in (
+            DepthEstimatorType.DEPTH_SGBM, DepthEstimatorType.DEPTH_RAFT_STEREO,
+            DepthEstimatorType.DEPTH_CRESTEREO_PYTORCH,
+            DepthEstimatorType.DEPTH_CRESTEREO_MEGENGINE)
 
     # ------------------------------------------------------------- dataset
     if args.config:
@@ -115,10 +134,14 @@ def main(argv=None) -> int:
         loop_cfg = cfg.loop_detection_config_name
     else:
         sensor = SENSORS[args.sensor]
+        # a stereo estimator on the monocular demo stream takes the right
+        # image the stream renders for it
+        render = "stereo" if sensor == SensorType.MONOCULAR and stereo_estimator \
+            else args.sensor
         dataset = dataset_factory(
             # period bounds the yaw rate (360/period deg per frame), as the
             # JAX package's main_slam.py sets it
-            {"type": "synthetic", "num_frames": args.frames, "sensor_type": args.sensor,
+            {"type": "synthetic", "num_frames": args.frames, "sensor_type": render,
              "trajectory": "loop", "period": max(args.frames - 15, 120)})
         gt = groundtruth_factory({"type": "synthetic", "dataset": dataset})
         camera = PinholeCamera(dataset.w, dataset.h, dataset.fx, dataset.fy, dataset.cx,
@@ -137,19 +160,27 @@ def main(argv=None) -> int:
 
     if args.no_loop_closing:
         loop_cfg = None
+    depth_estimator = None
     if args.depth_estimator and sensor == SensorType.MONOCULAR:
-        ap.error("the monocular upgrade to RGBD by a depth estimator is not ported yet: "
-                 f"{LEARNED_ITEM}")
+        if stereo_estimator and len(dataset) and dataset.getImageRight(0) is None:
+            ap.error(f"--depth_estimator {args.depth_estimator} needs a stereo pair; the "
+                     "monocular dataset gives no right image")
+        # the MONOCULAR -> RGBD upgrade: each frame's depth estimated in
+        # the front-end (the reference's main_slam.py)
+        from pyslam_tpu_torch.depth_estimation.depth_estimator import depth_estimator_factory
+
+        depth_estimator = depth_estimator_factory(args.depth_estimator, camera=camera,
+                                                  device=device)
 
     slam = Slam(camera, tracker_cfg, loop_detector_config=loop_cfg, sensor_type=sensor,
-                device=device)
+                depth_estimator=depth_estimator, device=device)
 
     integrator = None
     if args.volumetric:
         from pyslam_tpu_torch.dense.volumetric_integrator import (
             VolumetricIntegratorType, volumetric_integrator_factory)
 
-        if sensor == SensorType.STEREO:
+        if sensor == SensorType.STEREO or (args.depth_estimator and sensor != SensorType.RGBD):
             # no native dense depth: estimate it inside the integrator
             Parameters.kVolumetricIntegrationUseDepthEstimator = True
             if args.depth_estimator:
@@ -236,6 +267,8 @@ def main(argv=None) -> int:
                "num_keyframes": slam.map.num_keyframes(), "num_points": slam.map.num_points(),
                "loops_closed": (slam.loop_closing.num_loops_closed
                                 if slam.loop_closing is not None else 0),
+               "volumetric_keyframes": len(integrator.snapshots) if integrator else 0,
+               "volumetric_integrated": integrator.volume.num_integrated if integrator else 0,
                "stage_totals_ms": {mod: {k: v["total_ms"] for k, v in st.items()}
                                    for mod, st in slam.timings().items()}}
     if gt is not None and len(ts) > 3:

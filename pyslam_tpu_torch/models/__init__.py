@@ -3,8 +3,10 @@ LightGlue, the ResNet trunk and CosPlace / EigenPlaces, the learned
 local features XFeat, DISK, ALIKED, R2D2, D2-Net, Key.Net, LF-Net, DELF,
 the patch descriptors (HardNet, SOSNet, L2Net, TFeat, GeoDesc, the
 log-polar net) and ContextDesc, the dense two-view matchers LoFTR and
-DUSt3R / MASt3R, and the place-recognition networks NetVLAD and MegaLoc
-(over ``depth_anything_v2``'s ViT block).
+DUSt3R / MASt3R, the place-recognition networks NetVLAD and MegaLoc
+(over ``depth_anything_v2``'s ViT block), and the depth models: the
+DPT-lite, DepthAnythingV2, DepthAnything 3 and DepthPro (over VGGT's block,
+``vggt._Block``), RAFT-Stereo, CREStereo and MV-DUSt3R.
 
 Each family is an ``nn.Module`` in plain PyTorch (``F.conv2d``, matrix
 products, softmax, index gathers; ALIKED's deformable convolutions are
@@ -23,8 +25,8 @@ official torch checkpoint loads through ``models.torch_convert`` (a key
 mapping: the modules keep the official state-dict layouts where there is
 one).  No other family has a bundled checkpoint: XFeat, DISK, ALIKED,
 R2D2, D2-Net, Key.Net, LF-Net, DELF, the patch descriptors, ContextDesc,
-LoFTR, DUSt3R / MASt3R, NetVLAD and MegaLoc (and LightGlue on 64- or
-128-d descriptors) run with random weights
+LoFTR, DUSt3R / MASt3R, NetVLAD, MegaLoc, the depth models (and LightGlue
+on 64- or 128-d descriptors) run with random weights
 from a seeded ``torch.Generator`` and report ``trained = False`` until an
 official checkpoint (or the JAX package's ``.npz`` for the TF1-era LF-Net,
 DELF, GeoDesc and ContextDesc) is given.  The JAX package draws its random

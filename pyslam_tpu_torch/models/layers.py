@@ -13,6 +13,11 @@ package's flax code computes them (NCHW here, NHWC there).
 - ``BatchNormRS``: flax ``BatchNorm(use_running_average=True)`` without
   scale or bias, ``(x - mean) * rsqrt(var + eps)``, with the running
   statistics as buffers under torch's names.
+- ``GroupNormF``: flax ``GroupNorm`` (eps 1e-6, the fast variance), and
+  ``softplus`` as ``jax.nn.softplus`` computes it.
+- ``autotuned_convs``: cuDNN flags that autotune each convolution's
+  algorithm (for float32 with TF32 off its default can be an FFT of ~130k
+  launches, ``models.loftr``).
 """
 
 from __future__ import annotations
@@ -86,6 +91,41 @@ class BatchNormRS(nn.Module):
         m = self.running_mean.view(1, -1, 1, 1)
         v = self.running_var.view(1, -1, 1, 1)
         return (x - m) * torch.rsqrt(v + self.eps)
+
+
+class GroupNormF(nn.Module):
+    """flax ``GroupNorm`` over (B, C, H, W): per sample and group of
+    ``C / groups`` consecutive channels, ``(x - mean) * (rsqrt(var + eps) *
+    weight) + bias`` with the variance ``mean(x^2) - mean(x)^2``."""
+
+    def __init__(self, groups: int, channels: int, eps: float = 1e-6):
+        super().__init__()
+        self.groups, self.eps = groups, eps
+        self.weight = nn.Parameter(torch.ones(channels))
+        self.bias = nn.Parameter(torch.zeros(channels))
+
+    def forward(self, x):
+        b, c = x.shape[:2]
+        g = x.reshape(b, self.groups, -1)
+        mu = g.mean(-1)
+        var = torch.clamp((g * g).mean(-1) - mu * mu, min=0.0)
+        per_ch = c // self.groups
+        mu = mu.repeat_interleave(per_ch, 1).view(b, c, 1, 1)
+        mul = (torch.rsqrt(var + self.eps).repeat_interleave(per_ch, 1)
+               * self.weight).view(b, c, 1, 1)
+        return (x - mu) * mul + self.bias.view(1, c, 1, 1)
+
+
+def softplus(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.softplus``: ``logaddexp(x, 0)``."""
+    return torch.clamp(x, min=0.0) + torch.log1p(torch.exp(-x.abs()))
+
+
+def autotuned_convs():
+    """cuDNN flags under which each convolution's algorithm is autotuned
+    (TF32 stays off)."""
+    return torch.backends.cudnn.flags(enabled=True, benchmark=True, deterministic=False,
+                                      allow_tf32=False)
 
 
 def rgb_image(img, device) -> torch.Tensor:

@@ -39,7 +39,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from pyslam_tpu_torch import interop
-from pyslam_tpu_torch.models.layers import layer_norm, resize_hw, truncation_resample
+from pyslam_tpu_torch.models.layers import (autotuned_convs, layer_norm, resize_hw,
+                                            truncation_resample)
 from pyslam_tpu_torch.models.resnet import BN
 from pyslam_tpu_torch.ops.nms import _topk_stable
 
@@ -209,8 +210,7 @@ class LoFTRNet(nn.Module):
         # cuDNN's default choice for these float32 convolutions (TF32 off) is
         # an FFT algorithm of ~130k complex GEMM launches (1.1-1.3 s a pair on
         # the card, PERF.md); autotuning picks a direct one for each shape
-        with torch.backends.cudnn.flags(enabled=True, benchmark=True, deterministic=False,
-                                        allow_tf32=False):
+        with autotuned_convs():
             c, fine = self.backbone(x)
         f = (c.permute(0, 2, 3, 1) + self.pe).reshape(2, -1, d_c)
         f1, f2 = self.loftr_coarse(f[0], f[1])

@@ -4,7 +4,8 @@
 local-feature modules: ``patch_descriptors.py:200-290``, ``disk.py:79``,
 ``aliked.py:227``, ``r2d2.py:96``, ``d2net.py:61``, ``keynet.py:97``, and
 of the dense matchers and VPR networks: ``loftr.py:281``,
-``torch_convert.py:225-329``).
+``torch_convert.py:225-329``, and DepthAnythingV2's
+``torch_convert.py:333-462``).
 
 The port's modules keep the official layouts, so each conversion is a key
 mapping, not a layout change: MagicLeap's ``conv1a..convDb`` and
@@ -16,12 +17,15 @@ and its GeM ``p`` and linear head found by shape.  XFeat, ALIKED and R2D2
 load with their own keys; the L2Net-class patch nets, TFeat, DISK and
 Key.Net are mapped by the order of their layers, as the JAX package maps
 them, and D2-Net loses its module prefix.  LoFTR, DUSt3R / MASt3R and
-NetVLAD keep their official names.  Nothing is downloaded:
+NetVLAD keep their official names; DepthAnythingV2's DINOv2 and DPT
+names map to the JAX package's, its position embedding resized to the
+network's grid.  Nothing is downloaded:
 the caller names the file.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -217,3 +221,78 @@ def netvlad_from_torch_file(path: str) -> dict[str, torch.Tensor]:
     """A pytorch-NetVlad checkpoint (``encoder.<i>``, ``pool.conv``,
     ``pool.centroids``) -> ``NetVLADNet`` weights (the same names)."""
     return _plain(load_torch_file(path))
+
+
+# ------------------------------------------------------- DepthAnythingV2
+def _dav2_pos_embed(pe, grid_hw):
+    """The official (1 + G * G, D) position embedding resized to the
+    network's (h8, w8) patch grid, as the JAX package's converter does
+    (``scipy.ndimage.zoom``, linear; its own bilinear sampling without
+    scipy); the class token's row first."""
+    g = int(round((pe.shape[0] - 1) ** 0.5))
+    grid = pe[1:].reshape(g, g, pe.shape[1])
+    h8, w8 = grid_hw
+    try:
+        from scipy.ndimage import zoom
+
+        grid = zoom(grid, (h8 / g, w8 / g, 1), order=1)
+    except ImportError:
+        ys = np.clip((np.arange(h8) * g / h8), 0, g - 1)
+        xs = np.clip((np.arange(w8) * g / w8), 0, g - 1)
+        y0, x0 = ys.astype(int), xs.astype(int)
+        y1, x1 = np.minimum(y0 + 1, g - 1), np.minimum(x0 + 1, g - 1)
+        fy, fx = (ys - y0)[:, None, None], (xs - x0)[None, :, None]
+        grid = (grid[y0][:, x0] * (1 - fy) * (1 - fx) + grid[y0][:, x1] * (1 - fy) * fx
+                + grid[y1][:, x0] * fy * (1 - fx) + grid[y1][:, x1] * fy * fx)
+    return np.concatenate([pe[:1], grid.reshape(-1, pe.shape[1])], axis=0)
+
+
+def depth_anything_v2_from_torch(state_dict, cfg) -> dict[str, torch.Tensor]:
+    """An official DepthAnythingV2 checkpoint (``pretrained.*`` DINOv2 +
+    ``depth_head.*`` DPT) -> ``DepthAnythingV2Net`` weights for ``cfg``
+    (a ``DAv2Config``): the learned position embedding is resized from the
+    checkpoint's grid to the network's; ``refinenet4``'s unused
+    ``resConfUnit1`` is dropped."""
+    sd = {k.replace("module.", ""): v.detach().cpu().float() for k, v in state_dict.items()}
+    out = {"patch_embed.weight": sd["pretrained.patch_embed.proj.weight"],
+           "patch_embed.bias": sd["pretrained.patch_embed.proj.bias"],
+           "cls_token": sd["pretrained.cls_token"].reshape(1, -1),
+           "encoder_norm.weight": sd["pretrained.norm.weight"],
+           "encoder_norm.bias": sd["pretrained.norm.bias"]}
+    pe = sd["pretrained.pos_embed"][0].numpy()
+    h8, w8 = cfg.img_hw[0] // cfg.patch, cfg.img_hw[1] // cfg.patch
+    if pe.shape[0] != 1 + h8 * w8:
+        pe = _dav2_pos_embed(pe, (h8, w8))
+    out["pos_embed"] = torch.from_numpy(np.ascontiguousarray(pe, np.float32))
+    blk = {"norm1": "norm1", "attn.qkv": "qkv", "attn.proj": "attn_proj", "norm2": "norm2",
+           "mlp.fc1": "fc1", "mlp.fc2": "fc2"}
+    for i in range(cfg.depth):
+        b = f"pretrained.blocks.{i}"
+        for src, dst in blk.items():
+            for leaf in ("weight", "bias"):
+                out[f"block_{i}.{dst}.{leaf}"] = sd[f"{b}.{src}.{leaf}"]
+        out[f"block_{i}.ls1"] = sd[f"{b}.ls1.gamma"]
+        out[f"block_{i}.ls2"] = sd[f"{b}.ls2.gamma"]
+    names = {f"depth_head.projects.{j}": f"project_{j}" for j in range(4)}
+    names.update({f"depth_head.resize_layers.{j}": f"resize_{j}" for j in (0, 1, 3)})
+    names.update({f"depth_head.scratch.layer{j}_rn": f"layer{j}_rn" for j in range(1, 5)})
+    for r in range(1, 5):
+        rn = f"depth_head.scratch.refinenet{r}"
+        units = (("resConfUnit1", "rcu1"), ("resConfUnit2", "rcu2")) if r < 4 else \
+            (("resConfUnit2", "rcu2"),)
+        for src, dst in units:
+            for conv in ("conv1", "conv2"):
+                names[f"{rn}.{src}.{conv}"] = f"refine{r}.{dst}.{conv}"
+        names[f"{rn}.out_conv"] = f"refine{r}.out_conv"
+    names.update({"depth_head.scratch.output_conv1": "output_conv1",
+                  "depth_head.scratch.output_conv2.0": "output_conv2a",
+                  "depth_head.scratch.output_conv2.2": "output_conv2b"})
+    for src, dst in names.items():
+        for leaf in ("weight", "bias"):
+            if f"{src}.{leaf}" in sd:
+                out[f"{dst}.{leaf}"] = sd[f"{src}.{leaf}"]
+    return out
+
+
+def depth_anything_v2_from_torch_file(path: str, cfg) -> dict[str, torch.Tensor]:
+    return depth_anything_v2_from_torch(load_torch_file(path), cfg)

@@ -3,7 +3,8 @@
 
 K minimal samples of 6 2D-3D correspondences are solved as one batch with
 the linear DLT (12-parameter projection matrix from the eigenvector of the
-smallest eigenvalue, projected onto SE(3)), scored on every point at once,
+smallest eigenvalue, in float64, projected onto SE(3)), scored on every
+point at once,
 and the best (first of the highest inlier count) is polished by 8
 Gauss-Newton iterations on its inliers.  ``samples`` (K, 6) replaces the
 random draw.
@@ -19,7 +20,13 @@ from pyslam_tpu_torch.ops.epipolar import _sample_minimal
 
 def _dlt_pnp(pts3d: torch.Tensor, xy: torch.Tensor) -> torch.Tensor:
     """Linear PnP on (..., n, 3) points and (..., n, 2) normalised
-    coordinates; returns (..., 4, 4) world->camera transforms."""
+    coordinates; returns (..., 4, 4) world->camera transforms in the
+    inputs' type.  The 12x12 eigen-solve runs in float64: the card's
+    batched float32 solver keeps 2.6x fewer usable hypotheses than float64
+    on points 4-70 m away (``tests/torch_pnp_conditioning.py``), which made
+    relocalisation on the card miss frames the CPU relocalised."""
+    dtype = pts3d.dtype
+    pts3d, xy = pts3d.double(), xy.double()
     X = torch.cat([pts3d, torch.ones_like(pts3d[..., :1])], -1)           # (..., n, 4)
     zeros = torch.zeros_like(X)
     x, y = xy[..., 0:1], xy[..., 1:2]
@@ -31,7 +38,7 @@ def _dlt_pnp(pts3d: torch.Tensor, xy: torch.Tensor) -> torch.Tensor:
     P = P * sign[..., None, None]
     scale = lie._cbrt(torch.clamp(lie.det3(P[..., :3]), min=1e-12))
     R = lie.project_to_SO3(P[..., :3] / scale[..., None, None])
-    return lie.rt_to_T(R, P[..., 3] / scale[..., None])
+    return lie.rt_to_T(R, P[..., 3] / scale[..., None]).to(dtype)
 
 
 def _reproj_err2(Tcw: torch.Tensor, pts3d: torch.Tensor, xy: torch.Tensor) -> torch.Tensor:

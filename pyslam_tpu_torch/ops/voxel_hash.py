@@ -121,6 +121,39 @@ def lookup(table: VoxelHashTable, coords: torch.Tensor) -> torch.Tensor:
     return found.to(torch.int32)
 
 
+def probe_faults(table: VoxelHashTable) -> dict:
+    """What a correct insert never leaves in the table, counted over the
+    occupied slots (one dense pass of ``MAX_PROBES`` gathers):
+
+    - ``beyond``: a key displaced ``INSERT_ROUNDS`` or more slots from its
+      home slot, farther than any claim round probes;
+    - ``holes``: an empty slot between a key's home and its slot (a later
+      insert of the key would claim the hole: its probe sequence is lost);
+    - ``duplicates``: occupied slots whose key another occupied slot holds.
+
+    Also ``aliases`` (an earlier slot on a key's probe sequence holding
+    another key with the same fingerprint: ``lookup``'s documented false
+    positive, ~2**-32 a pair) and ``max_displacement``."""
+    C = table.capacity
+    s = torch.nonzero(table.occupied).reshape(-1)
+    keys = table.keys[s]
+    h = _hash(keys, C)
+    d = (s - h) & (C - 1)
+    fpt = _table_fingerprints(table)
+    fp = fpt[s]
+    holes = torch.zeros((), dtype=torch.int64, device=s.device)
+    aliases = torch.zeros_like(holes)
+    for j in range(MAX_PROBES):
+        before = j < d
+        slot = (h + j) & (C - 1)
+        holes += (before & (fpt[slot] == 0)).sum()
+        aliases += (before & (fpt[slot] == fp) & (table.keys[slot] != keys).any(1)).sum()
+    n_unique = int(torch.unique(keys, dim=0).shape[0]) if len(s) else 0
+    return {"occupied": int(len(s)), "beyond": int((d >= INSERT_ROUNDS).sum()),
+            "holes": int(holes), "duplicates": int(len(s)) - n_unique,
+            "aliases": int(aliases), "max_displacement": int(d.max()) if len(s) else 0}
+
+
 def fma32(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
     """float32 ``a * b + c`` as XLA's CPU code computes it, contracted into
     a fused multiply-add.  The product of two float32 values is exact in

@@ -16,9 +16,17 @@ keyframe's sensor depth, so the integrator takes it instead of estimating
 one) for the volumetric integrator, advances local mapping by a bounded
 slice, services loop closing (one keyframe's detection, or a poll of the
 asynchronous GBA) and issues one integrator stage; the device queue gives
-the overlap.  The
-reference's ``depth_estimator=`` upgrade of a monocular stream to RGBD
-needs the learned estimators, which are not ported.
+the overlap.
+
+``depth_estimator=`` upgrades a MONOCULAR session to RGBD, as the
+reference does: ``track()`` estimates the frame's depth
+(``depth_estimator.infer(img, img_right=img_right)``) before tracking and
+hands it on as a sensor depth, to the frame and to the integrator's
+keyframe snapshot.  As in the reference, a right image given to ``track()``
+also reaches the frame, whose keypoint depths then come from the stereo
+match; without one they come from the estimated depth.  The next frame is
+prefetched only when it needs no estimate of its own (it has a right image
+or a depth), as the reference prefetches only stereo frames.
 """
 
 from __future__ import annotations
@@ -55,12 +63,17 @@ class Slam:
                  feature_tracker_config: FeatureTrackerConfig | str = "ORB2",
                  loop_detector_config=None, sensor_type: SensorType = SensorType.STEREO, *,
                  depth_estimator=None, device: torch.device | str = "cuda"):
-        if depth_estimator is not None:
-            raise NotImplementedError("the depth-estimator upgrade of a monocular stream "
-                                      "needs the learned estimators, which are not ported yet")
         self.camera = camera
-        self.sensor_type = sensor_type
         self.device = torch.device(device)
+        self.depth_estimator = depth_estimator
+        if depth_estimator is not None:
+            if not same_device(depth_estimator.device, self.device):
+                raise ValueError(f"depth estimator on {depth_estimator.device}, "
+                                 f"Slam on {self.device}")
+            if sensor_type == SensorType.MONOCULAR:
+                Printer.yellow("Slam: depth estimator attached - upgrading MONOCULAR to RGBD")
+                sensor_type = SensorType.RGBD
+        self.sensor_type = sensor_type
         self.feature_tracker_config = (feature_tracker_config
                                        if isinstance(feature_tracker_config, FeatureTrackerConfig)
                                        else None)
@@ -95,7 +108,11 @@ class Slam:
         map (RGBD), or one image (monocular).  ``next_input`` ({img,
         img_right, depth, frame_id, timestamp} of the NEXT frame) lets its
         extraction be queued right behind this frame's tracking step, so the
-        device works on it while the host finishes this frame."""
+        device works on it while the host finishes this frame.  With a depth
+        estimator and no ``depth``, the frame's depth is estimated first."""
+        if depth is None and self.depth_estimator is not None:
+            with self.tracking.timings.stage("depth_estimate"):
+                depth, _ = self.depth_estimator.infer(img, img_right=img_right)
         self.local_mapping.harvest()
         pre = None
         if self._prefetched is not None:
@@ -113,7 +130,9 @@ class Slam:
                 timestamp=ni.get("timestamp", 0.0), feature_tracker=self.feature_tracker,
                 frame_id=ni["frame_id"]))
 
-        has_next = next_input is not None and next_input.get("img") is not None
+        has_next = next_input is not None and next_input.get("img") is not None and (
+            self.depth_estimator is None or next_input.get("img_right") is not None
+            or next_input.get("depth") is not None)
         if has_next:
             self.tracking.on_fused_dispatched = prefetch
         frame = self.tracking.track(img, img_right=img_right, depth=depth, frame_id=frame_id,

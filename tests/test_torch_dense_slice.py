@@ -131,7 +131,7 @@ def test_integrator_refuses_another_device():
     vol = TV.TSDFVolume(capacity=1 << 8, device="cpu")
     with pytest.raises(ValueError):
         TV.VolumetricIntegrator(cam, volume=vol, device="meta")
-    with pytest.raises(NotImplementedError, match="item 12"):
+    with pytest.raises(NotImplementedError, match="item 4.1"):
         TV.volumetric_integrator_factory("gaussian_splatting", camera=cam, device="cpu")
     slam = Slam(cam, FeatureTrackerConfig(num_features=100, num_levels=2),
                 sensor_type=SensorType.STEREO, device="cpu")

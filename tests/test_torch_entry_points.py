@@ -217,12 +217,21 @@ def test_main_slam_evaluation(kitti, tmp_path):
 
 
 @pytest.mark.parametrize("args,item", [
-    (["--viewer"], "ROADMAP.md item 4"),
-    (["--semantics"], "ROADMAP.md item 4"),
-    (["--depth_estimator", "depth_anything_v2"], "ROADMAP.md item 3"),
-    (["--sensor", "mono", "--depth_estimator", "sgbm"], "ROADMAP.md item 3"),
+    (["--viewer"], "ROADMAP.md section 1 item 4.2"),
+    (["--semantics"], "ROADMAP.md section 1 item 3.4"),
+    (["--depth_estimator", "no_such_estimator"], "one of sgbm, depth_anything_v2"),
+    (["--config", "mono_kitti", "--depth_estimator", "sgbm"], "needs a stereo pair"),
 ])
-def test_main_slam_refusals_name_their_item(args, item, capsys):
+def test_main_slam_refusals_name_their_item(args, item, capsys, request):
+    if "mono_kitti" in args:
+        # the KITTI sequence read as monocular: no right image for SGBM
+        root, cfg_path = request.getfixturevalue("kitti")[:2]
+        cfg = yaml.safe_load(open(cfg_path))
+        cfg["KITTI"]["sensor_type"] = "mono"
+        mono = os.path.join(root, "config_mono.yaml")
+        with open(mono, "w") as f:
+            yaml.safe_dump(cfg, f)
+        args = [mono if a == "mono_kitti" else a for a in args]
     with pytest.raises(SystemExit) as e:
         main_slam.main(args + ["--device", "cpu", "--frames", "2"])
     assert e.value.code == 2

@@ -34,6 +34,14 @@ def test_import_loads_no_jax():
         "import pyslam_tpu_torch.models.mast3r, pyslam_tpu_torch.models.netvlad\n"
         "import pyslam_tpu_torch.models.megaloc, pyslam_tpu_torch.models.depth_anything_v2\n"
         "import pyslam_tpu_torch.loop_closing.vpr, pyslam_tpu_torch.loop_closing.vlad\n"
+        "import pyslam_tpu_torch.models.vggt, pyslam_tpu_torch.models.depth_anything\n"
+        "import pyslam_tpu_torch.models.depth_anything_v3, pyslam_tpu_torch.models.depth_pro\n"
+        "import pyslam_tpu_torch.models.raft_stereo, pyslam_tpu_torch.models.crestereo\n"
+        "import pyslam_tpu_torch.models.mvdust3r, pyslam_tpu_torch.models.torch_convert\n"
+        "import pyslam_tpu_torch.main_depth_prediction\n"
+        "from pyslam_tpu_torch.depth_estimation.depth_estimator import depth_estimator_factory\n"
+        "for t in ('depth_anything_v2', 'depth_anything_v3', 'mvdust3r', 'depth_pro'):\n"
+        "    depth_estimator_factory(t, device='meta')\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
         "or m == 'pyslam_tpu' or m.startswith('pyslam_tpu.')]\n"
         "assert not bad, bad\n"
@@ -241,17 +249,25 @@ def test_every_sensor_builds(sensor):
 
 
 def test_depth_estimator_upgrade_refused():
-    """The monocular -> RGBD upgrade by a depth estimator needs the learned
-    estimators, which are not ported."""
+    """The monocular -> RGBD upgrade by a depth estimator is refused only
+    for an estimator on another device than the session's; on its device
+    the session runs as RGBD."""
+    from pyslam_tpu_torch.depth_estimation.depth_estimator import depth_estimator_factory
     from pyslam_tpu_torch.features.tracker import FeatureTrackerConfig
     from pyslam_tpu_torch.io.dataset_types import SensorType
     from pyslam_tpu_torch.slam.camera import PinholeCamera
     from pyslam_tpu_torch.slam.slam import Slam
 
     cam = PinholeCamera(320, 240, 200.0, 200.0, 160.0, 120.0)
-    with pytest.raises(NotImplementedError):
-        Slam(cam, FeatureTrackerConfig(num_features=300, num_levels=3),
-             sensor_type=SensorType.MONOCULAR, depth_estimator=object(), device="cpu")
+    cfg = FeatureTrackerConfig(num_features=300, num_levels=3)
+    with pytest.raises(ValueError):
+        Slam(cam, cfg, sensor_type=SensorType.MONOCULAR,
+             depth_estimator=depth_estimator_factory("sgbm", camera=cam, device="meta"),
+             device="cpu")
+    slam = Slam(cam, cfg, sensor_type=SensorType.MONOCULAR,
+                depth_estimator=depth_estimator_factory("sgbm", camera=cam, device="cpu"),
+                device="cpu")
+    assert slam.sensor_type == SensorType.RGBD
 
 
 def _presets():

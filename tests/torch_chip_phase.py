@@ -6,9 +6,11 @@ the SuperPoint session, the LightGlue VO and the COSPLACE loop stage) or 15
 the learned presets' stereo sessions and the XFEAT_LIGHTGLUE VO) or 16
 (LoFTR, MASt3R / DUSt3R and the MAST3R session, the other loop detectors
 card against CPU, and the VLAD loop stage; ``16abc`` leaves the loop stage
-out).
+out) or 17 (the depth models card against CPU, the SGBM upgrade of a
+monocular session with the TSDF and the learned upgrades; ``17a`` the
+models alone).
 
-    PYTHONPATH=. python3 tests/torch_chip_phase.py 8|12|13|14|15|16|16abc
+    PYTHONPATH=. python3 tests/torch_chip_phase.py 8|12|13|14|15|16|16abc|17|17a
 
 Builds the kernels, renders the phase's frames as chip_smoke.py does and
 runs its function for the phase; prints what the phase prints.  Run from
@@ -31,7 +33,7 @@ def main():
     from pyslam_tpu_torch.slam.camera import PinholeCamera
 
     arg = sys.argv[1]
-    phase = int(arg[:2]) if arg.startswith("16") else int(arg)
+    phase = int(arg[:2]) if arg[:2] in ("16", "17") else int(arg)
     dev = torch.device("cuda", 0)
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -108,8 +110,17 @@ def main():
                 dev, (ds.w, ds.h, ds.fx, ds.fy, ds.cx, ds.cy), loop_frames, loop="VLAD")
             assert vl["loops_closed"] >= cs.VLAD_MIN_LOOPS, vl
         print(json.dumps({"dense": dense}, default=float), flush=True)
+    elif phase == 17:
+        cam = PinholeCamera(ds.w, ds.h, ds.fx, ds.fy, ds.cx, ds.cy, fps=ds.fps,
+                            bf=ds.fx * ds.baseline, depth_threshold=35.0)
+        frames = [(ds.getImage(i), ds.getImageRight(i), ds.getTimestamp(i))
+                  for i in range(cs.N_FRAMES if arg == "17" else 1)]
+        t0 = time.time()
+        out = (cs.depth_phase(dev, frames, cam, ds) if arg == "17"
+               else {"models": cs.depth_models_phase(dev, frames)})
+        print(json.dumps({"depth": out}, default=float), flush=True)
     else:
-        raise SystemExit(f"phase {phase}: only 8, 12, 13, 14, 15 and 16 run alone")
+        raise SystemExit(f"phase {phase}: only 8, 12, 13, 14, 15, 16 and 17 run alone")
     print(f"phase {phase}: {time.time() - t0:.1f} s", flush=True)
 
 

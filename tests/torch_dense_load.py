@@ -7,9 +7,12 @@ Runs the integrator that chip_smoke.py attaches (bench.py's main stage:
 TSDF, voxel 0.2 m, sdf_trunc 0.6 m, depth truncation 40 m, SGM depth at
 downscale 2, a 1 << 22-slot table, 3 phases a keyframe) over the 60 frames
 of chip_smoke.py's 376x1241 stream, a keyframe every ``--every`` frames at
-its ground-truth pose.  For each keyframe it prints the table's load factor
-after the keyframe and the share of that keyframe's valid updates still
-unresolved after the insert's claim rounds (dropped).
+its ground-truth pose.  For each keyframe it prints the distinct voxels
+its updates touch, the table's load factor after the keyframe beside
+chip_smoke.py's ceiling for that many keyframes (``load_ceiling``), the
+probe-sequence faults (``voxel_hash.probe_faults``) and the share of that
+keyframe's valid updates still unresolved after the insert's claim rounds
+(dropped).
 
 ``--reference`` runs the JAX package's integrator (built by its factory with
 the same flags, on the CPU, x64 off as the package runs) on the same images
@@ -25,6 +28,7 @@ import numpy as np
 import torch
 
 import chip_smoke
+from pyslam_tpu_torch.ops import voxel_hash
 from pyslam_tpu_torch.slam.camera import PinholeCamera
 
 
@@ -92,13 +96,19 @@ def main():
         jax.config.update("jax_enable_x64", False)
         ref, ref_cam = reference_integrator(ds)
         ref.volume.integrate(empty, ds.getImage(0), np.eye(4), ref_cam.K)
-    for f in range(0, chip_smoke.N_FRAMES, args.every):
+    frames = [(ds.getImage(f), ds.getImageRight(f), 0) for f in range(chip_smoke.N_FRAMES)]
+    per_frame = chip_smoke.frame_voxels(vol, integ._depth_provider, cam, frames,
+                                        ds.poses[:chip_smoke.N_FRAMES])
+    for n, f in enumerate(range(0, chip_smoke.N_FRAMES, args.every), 1):
         left, right, Twc = ds.getImage(f), ds.getImageRight(f), ds.poses[f]
         dropped, valid = chip_smoke.keyframe_drops(vol, integ._depth_provider, cam, left, right,
                                                    Twc, insert=True)
-        print(f"frame {f}: {vol.num_voxels()} voxels, load factor "
-              f"{vol.num_voxels() / vol.capacity:.4f}, dropped {dropped} of {valid} valid "
-              f"updates ({dropped / max(valid, 1) * 100:.3f}%)", flush=True)
+        faults = voxel_hash.probe_faults(vol.table)
+        print(f"frame {f}: {per_frame[f]} distinct voxels, {vol.num_voxels()} in the table, "
+              f"load factor {vol.num_voxels() / vol.capacity:.4f} (ceiling "
+              f"{chip_smoke.load_ceiling(per_frame, n, vol.capacity):.4f} for {n} keyframes), "
+              f"faults {faults}, dropped {dropped} of {valid} valid updates "
+              f"({dropped / max(valid, 1) * 100:.3f}%)", flush=True)
         if args.reference:
             r_drop, r_valid = reference_keyframe(ref.volume, ref._depth_provider, ref_cam, left,
                                                  right, Twc)

@@ -5,6 +5,7 @@ odometry, in the JAX package (on the CPU) or in the port.
                                        [--sensor mono|rgbd|stereo|vo]
                                        [--preset ORB2] [--loop DBOW3_INDEPENDENT]
                                        [--frames 60] [--device cpu|cuda]
+                                       [--depth-estimator sgbm|depth_anything_v2|mast3r|...]
 
 Runs the configuration of chip_smoke.py phases 9, 10 and 12: the main
 stage's 376x1241 stream (fx 718.856, a 16000-point world at depth 4-80 m, a
@@ -22,6 +23,16 @@ ground truth's scale, as phase 11) and prints its frames, matches of the
 last frame and ATE.  The witness that sets phase 10's initialisation
 margin, phase 12's and 14a's tracked frames and ATE ceilings and 14b's ATE
 ceiling.
+
+``--depth-estimator TYPE`` with ``--sensor mono`` is phase 17b's and 17c's
+configuration: ``Slam(sensor_type=MONOCULAR, depth_estimator=...)`` (the
+factory's defaults; the JAX package's ``PRNGKey(0)`` weights, the port's
+seeded ones), upgraded to RGBD.  A stereo estimator (``sgbm``) takes the
+stream's right image, which ``track()`` also hands to the frame, as in
+both packages; a monocular one gets the left image only.  The ATE is
+metric (no scale in the alignment), and the trajectory's length is
+printed beside the ground truth's.  The witness of phase 17b's ATE ceiling
+and of 17c's reference numbers.
 """
 
 import argparse
@@ -40,11 +51,13 @@ def main():
     ap.add_argument("--loop", default=None)
     ap.add_argument("--frames", type=int, default=chip_smoke.N_FRAMES)
     ap.add_argument("--device", default="cpu")
+    ap.add_argument("--depth-estimator", default=None)
     args = ap.parse_args()
     if args.package == "jax":
         import jax
 
         jax.config.update("jax_platforms", "cpu")
+        from pyslam_tpu.depth_estimation.depth_estimator import depth_estimator_factory
         from pyslam_tpu.evaluation.metrics import eval_ate
         from pyslam_tpu.features.tracker import FeatureTrackerConfig, feature_tracker_factory
         from pyslam_tpu.io.dataset_types import SensorType
@@ -54,6 +67,7 @@ def main():
         from pyslam_tpu.slam.visual_odometry import VisualOdometry
         kw = {}
     else:
+        from pyslam_tpu_torch.depth_estimation.depth_estimator import depth_estimator_factory
         from pyslam_tpu_torch.evaluation.metrics import eval_ate
         from pyslam_tpu_torch.features.tracker import FeatureTrackerConfig, feature_tracker_factory
         from pyslam_tpu_torch.io.dataset_types import SensorType
@@ -84,15 +98,21 @@ def main():
         return
     mono = args.sensor == "mono"
     sensor = {"mono": "MONOCULAR", "rgbd": "RGBD", "stereo": "STEREO"}[args.sensor]
-    ds = chip_smoke.bench_stream(sensor)
+    stereo_estimator = args.depth_estimator in ("sgbm", "raft_stereo", "crestereo")
+    ds = chip_smoke.bench_stream("STEREO" if stereo_estimator else sensor)
     n = args.frames
     cam = PinholeCamera(ds.w, ds.h, ds.fx, ds.fy, ds.cx, ds.cy, fps=ds.fps,
                         bf=ds.fx * chip_smoke.BASELINE_M, depth_threshold=35.0)
     tracker = (FeatureTrackerConfig(num_features=chip_smoke.N_FEATURES,
                                     num_levels=chip_smoke.N_LEVELS)
                if args.preset == "ORB2" else args.preset)
+    est = None
+    if args.depth_estimator:
+        assert mono, "--depth-estimator upgrades a monocular session"
+        est = depth_estimator_factory(args.depth_estimator, camera=cam, **kw)
+        mono = False          # an RGBD session: metric, no scale in the ATE
     slam = Slam(cam, tracker, loop_detector_config=args.loop, sensor_type=SensorType[sensor],
-                **kw)
+                depth_estimator=est, **kw)
     resets = []
     reset = slam.reset
 
@@ -107,7 +127,8 @@ def main():
     for i in range(n):
         n_hist = len(slam.tracking.history.timestamps)
         slam.track(ds.getImage(i),
-                   img_right=ds.getImageRight(i) if sensor == "STEREO" else None,
+                   img_right=ds.getImageRight(i) if sensor == "STEREO" or stereo_estimator
+                   else None,
                    depth=ds.getDepth(i) if sensor == "RGBD" else None, frame_id=i,
                    timestamp=ds.getTimestamp(i))
         if len(slam.tracking.history.timestamps) == n_hist:
@@ -124,10 +145,16 @@ def main():
     ts, Twc = slam.tracking.history.final_trajectory(slam.map)
     ate = (float(eval_ate(ts, Twc[:, :3, 3], gt_t, ds.poses[:n, :3, 3], align=True,
                           with_scale=mono).rmse) if len(ts) >= 3 else float("nan"))
-    print(f"{args.package} {args.sensor} {args.preset} loop={args.loop}: initialised at frame "
-          f"{init_frame}, {len(slam.tracking.history.timestamps)}/{n} tracked, "
-          f"{len(resets)} resets, {slam.map.num_keyframes()} keyframes, ATE {ate:.4f} m "
-          f"({time.perf_counter() - t0:.0f} s)", flush=True)
+    length = ""
+    if len(ts) >= 2:
+        est_len = np.linalg.norm(np.diff(Twc[:, :3, 3], axis=0), axis=1).sum()
+        gt_len = np.linalg.norm(np.diff(ds.poses[:n, :3, 3], axis=0), axis=1).sum()
+        length = f", trajectory {est_len:.3f} m against {gt_len:.3f} m"
+    print(f"{args.package} {args.sensor} {args.preset} loop={args.loop} "
+          f"depth_estimator={args.depth_estimator} ({slam.sensor_type.name}): initialised at "
+          f"frame {init_frame}, {len(slam.tracking.history.timestamps)}/{n} tracked, "
+          f"{len(resets)} resets, {slam.map.num_keyframes()} keyframes, ATE {ate:.4f} m"
+          f"{length} ({time.perf_counter() - t0:.0f} s)", flush=True)
 
 
 if __name__ == "__main__":
