@@ -180,7 +180,10 @@ Phases (one line each, and any failure exits non-zero):
         described on the card; frames tracked, resets and ATE reported (no
         floor: random weights);
      c. NETVLAD, MEGALOC, ALEXNET, HDC_DELF, VLAD (trained on phase 7's
-        first four frames, the centres card against CPU) and SAD through
+        first four frames; its k-means held round by round card against
+        CPU, both fed the CPU's centres each round: assignments identical
+        but at near-ties, centres within DENSE_TOL; the descriptors then
+        compared on the card's centres) and SAD through
         LoopDetector on the card and on the CPU: two frames' descriptors
         within DENSE_TOL of their largest, one description's time; DBOW3
         with a PRETRAINED vocabulary the phase trains and saves: the word
@@ -215,7 +218,32 @@ Phases (one line each, and any failure exits non-zero):
         DEPTH_LEARNED_FRAMES left images, each frame's depth estimated on
         the card through Slam.track(): tracked, resets and ATE beside the
         JAX package's (random weights: no floor).
-     A ``depth`` JSON line gathers their numbers and the script's wall time.
+     A ``depth`` JSON line gathers their numbers.
+ 18. semantic mapping, seeded random weights (no segmenter has a
+     checkpoint in the repository):
+     a. DeepLabV3 (ResNet-50, output stride 8, the frame padded to
+        376x1248), SegFormer on the full frame, CLIP at 224 px (the image
+        tower dense, SEM_CLIP_LABELS' eight prompts), YOLO-seg at 256 px
+        (its decode of the CPU's heads on the card too) and DETR at 256 px
+        on phase 7's frame 0, card against CPU within DENSE_TOL and the
+        labels identical but at near-ties; forward ms, GFLOP, share of the
+        float32 peak, launches and kernel ms;
+     b. phase 7's stream and configuration with the intensity-band
+        segmenter (19 classes, the Cityscapes weights) attached through
+        Slam.set_semantic_mapping, the VOXEL_SEMANTIC_GRID integrator from
+        the factory and kUseSemanticsInOptimization on: 60/60 tracked, one
+        fast_nms launch a frame, ATE under ATE_MAX, every keyframe handed
+        over labelled with the bands of its image under its rounded raw
+        keypoints, every valid point of a labelled keyframe scored, the
+        table check; p50/p95, FPS, keyframes labelled and the last local
+        BA's down-weighted observations; then one keyframe through
+        integrate_semantic (COUNTING and BAYESIAN) card against CPU: slots
+        and keys identical, class scores within SEM_SCORES_TOL;
+     c. SEGFORMER and CLIP (FEATURE_VECTOR, ending in query_points_by_text)
+        sessions of SEM_LEARNED_FRAMES frames, every keyframe segmented on
+        the card (random weights: no floor).
+     A ``semantic`` JSON line gathers their numbers and the script's wall
+     time.
 It ends with a JSON line of kernel results, the card's name and power limit,
 and, last, {"ok": true, "device": {...}}.
 """
@@ -398,6 +426,12 @@ WITNESS_LEARNED = {"ORB2_HARDNET": (20, 0, 0.0378), "XFEAT": (20, 0, 4.5123),
 # xy2 within LOFTR_XY_TOL px on the matches both keep (conf_threshold 0);
 # MASt3R's maps and the VPR descriptors within DENSE_TOL of their largest
 DENSE_TOL = 1e-4
+# 16c: VLAD's k-means is held round by round (one near-tie of the float32
+# argmin sends the later rounds of two devices apart, so the trained end
+# states are not compared): both devices fed the CPU's centres, assignments
+# identical except where the two best of |c|^2 - 2 d.c are within
+# KMEANS_NEAR_TIE of the largest magnitude
+KMEANS_NEAR_TIE = 1e-4
 LOFTR_NN_SAME = 0.99
 LOFTR_XY_TOL = 1e-3
 MAST3R_FRAMES = 20
@@ -438,6 +472,20 @@ DEPTH_SGBM_ATE_MAX = WITNESS_DEPTH_SGBM[2] + DEPTH_ATE_MARGIN
 DEPTH_LEARNED_FRAMES = 20
 WITNESS_DEPTH_LEARNED = {"depth_anything_v2": (3, 1, float("nan")),
                          "mast3r": (14, 1, 3.8724)}
+
+
+# phase 18: semantic mapping.  18a holds each model card against CPU within
+# DENSE_TOL; 18b runs phase 7's stream and configuration with the
+# intensity-band segmenter, the semantic integrator and the BA weighting,
+# to phase 7's floor (60/60 tracked, one fast_nms launch a frame, ATE under
+# ATE_MAX, the table check), and holds one keyframe's integrate_semantic
+# card against CPU: slots and keys identical, class scores within
+# SEM_SCORES_TOL of their largest (the card adds in atomic order); 18c runs
+# SEGFORMER and CLIP (FEATURE_VECTOR) sessions of SEM_LEARNED_FRAMES frames
+SEM_SCORES_TOL = 1e-5
+SEM_LEARNED_FRAMES = 20
+SEM_CLIP_LABELS = ("floor", "wall", "ceiling", "furniture", "object", "person", "vehicle",
+                   "vegetation")
 
 
 T_START = time.perf_counter()
@@ -634,9 +682,10 @@ def check_ties(dev):
     return checked
 
 
-def build_integrator(cam, dev):
-    """The TSDF integrator with its SGM depth provider, with the flags and
-    factory arguments of bench.py:138-155."""
+def build_integrator(cam, dev, kind=None):
+    """The TSDF integrator (or another ``VolumetricIntegratorType``) with
+    its SGM depth provider, with the flags and factory arguments of
+    bench.py:138-155."""
     from pyslam_tpu_torch.config_parameters import Parameters
     from pyslam_tpu_torch.dense.volumetric_integrator import (
         VolumetricIntegratorType, volumetric_integrator_factory)
@@ -645,7 +694,7 @@ def build_integrator(cam, dev):
     Parameters.kVolumetricIntegrationDepthEstimatorType = "sgbm"
     Parameters.kVolumetricIntegrationDepthTruncOutdoor = DEPTH_TRUNC_OUTDOOR
     return volumetric_integrator_factory(
-        VolumetricIntegratorType.TSDF, camera=cam,
+        kind or VolumetricIntegratorType.TSDF, camera=cam,
         environment_type=type("E", (), {"name": "OUTDOOR"})(),
         voxel_size=VOXEL_SIZE, sdf_trunc=SDF_TRUNC, device=dev)
 
@@ -2207,6 +2256,36 @@ def _on_cpu(frame):
                            img_thumb=frame.img_thumb, dev=lambda name: frame.dev(name).cpu())
 
 
+def kmeans_rounds(dev, data, init, iters=8):
+    """Phase 16c: VLAD's Lloyd rounds on the card against the CPU, both fed
+    the CPU's centres in every round.  Returns (the largest relative
+    difference of the new centres no near-tie moved a member of, the
+    assignments that differed, all at near-ties)."""
+    import torch
+
+    from pyslam_tpu_torch.loop_closing import vlad
+
+    dc, dg = torch.from_numpy(data), torch.from_numpy(data).to(dev)
+    c_in, err, n_ties = init, 0.0, 0
+    for _ in range(iters):
+        cc, cg = torch.from_numpy(c_in), torch.from_numpy(c_in).to(dev)
+        a_c, a_g = vlad._assign(dc, cc).numpy(), vlad._assign(dg, cg).cpu().numpy()
+        new_c = vlad._kmeans(dc, cc, 1).numpy()
+        new_g = vlad._kmeans(dg, cg, 1).cpu().numpy()
+        differ = a_g != a_c
+        score = ((c_in.astype(np.float64) ** 2).sum(1)[None]
+                 - 2.0 * data.astype(np.float64) @ c_in.T.astype(np.float64))
+        two = np.sort(score, 1)[:, :2]
+        assert np.all(two[differ, 1] - two[differ, 0] <= KMEANS_NEAR_TIE * np.abs(score).max())
+        moved = np.zeros(len(c_in), bool)
+        moved[a_g[differ]] = moved[a_c[differ]] = True
+        err = max(err, float(np.abs(new_g[~moved] - new_c[~moved]).max(initial=0.0)
+                             / np.abs(new_c).max()))
+        n_ties += int(differ.sum())
+        c_in = new_c
+    return err, n_ties
+
+
 def vpr_phase(dev, frames):
     """Phase 16c: every other loop detector on the card and on the CPU:
     the descriptors of two of phase 7's frames (VLAD after training on its
@@ -2236,12 +2315,28 @@ def vpr_phase(dev, frames):
             dets = {"card": LoopDetector(cfg, device=dev), "cpu": LoopDetector(cfg, device="cpu")}
             row = {}
             if name == "VLAD":
-                for where, det in dets.items():
-                    for f in train:
-                        det.describe_frame(on[where](f))
-                    assert det.vlad.trained and det.vlad.consume_just_trained()
-                cg, cc = dets["card"].vlad.centers, dets["cpu"].vlad.centers
-                row["centers_rel_err"] = float(np.abs(cg - cc).max() / np.abs(cc).max())
+                from pyslam_tpu_torch.loop_closing import vlad
+
+                seeds, kmeans = {}, vlad._kmeans
+
+                def recorded(desc, init, iters, _k=kmeans):
+                    seeds[desc.device.type] = (desc.cpu().numpy(), init.cpu().numpy())
+                    return _k(desc, init, iters)
+
+                vlad._kmeans = recorded
+                try:
+                    for where, det in dets.items():
+                        for f in train:
+                            det.describe_frame(on[where](f))
+                        assert det.vlad.trained and det.vlad.consume_just_trained()
+                finally:
+                    vlad._kmeans = kmeans
+                (dg, ig), (dc, ic) = seeds["cuda"], seeds["cpu"]
+                assert np.array_equal(dg, dc) and np.array_equal(ig, ic), "k-means inputs"
+                row["kmeans_round_rel_err"], row["kmeans_near_ties"] = kmeans_rounds(
+                    dev, dc, ic)
+                # the descriptors compared below on the same (the card's) centres
+                dets["cpu"].vlad._set_centers(dets["card"].vlad.centers)
             errs = []
             for f in test:
                 g = dets["card"].describe_frame(f)[1]
@@ -2254,10 +2349,11 @@ def vpr_phase(dev, frames):
                        trained=None if det.netvlad is None else bool(det.netvlad.trained))
             log(f"[vpr] {name}: {row['dim']}-d, card against CPU within {row['rel_err']:.3g} "
                 f"(relative) on frames 4-5"
-                + (f", the trained centres within {row['centers_rel_err']:.3g}"
-                   if name == "VLAD" else "")
+                + (f", the k-means rounds within {row['kmeans_round_rel_err']:.3g} "
+                   f"({row['kmeans_near_ties']} near-tie assignments)" if name == "VLAD" else "")
                 + f"; one description {row['describe_ms']:.3f} ms on the card (CUDA events)")
-            assert row["rel_err"] <= DENSE_TOL and row.get("centers_rel_err", 0.0) <= DENSE_TOL, row
+            assert row["rel_err"] <= DENSE_TOL and row.get("kmeans_round_rel_err",
+                                                           0.0) <= DENSE_TOL, row
             rows[name] = row
             del dets, det
             torch.cuda.empty_cache()
@@ -2540,6 +2636,396 @@ def depth_phase(dev, frames, cam, ds):
         del est
         torch.cuda.empty_cache()
     out["learned_upgrade"] = learned
+    return out
+
+
+def _logits_err(lg, lc):
+    """(relative difference of two logit maps (C, ...) card and CPU, share
+    of labels that differ, whether every differing label is a near-tie:
+    its two best logits within DENSE_TOL of the largest magnitude)."""
+    lg, lc = lg.cpu().numpy(), lc.cpu().numpy()
+    scale = max(float(np.abs(lc).max()), 1e-30)
+    top2 = np.sort(lc, 0)[-2:]
+    differ = lg.argmax(0) != lc.argmax(0)
+    ties_ok = bool((top2[1] - top2[0] <= DENSE_TOL * scale)[differ].all())
+    return float(np.abs(lg - lc).max() / scale), float(differ.mean()), ties_ok
+
+
+def yolo_cells(heads, cfg):
+    """The grid cells YOLO-seg's decode keeps, level by level: the top
+    ``topk_per_level`` best class scores by a stable descending sort (the
+    order ``yolo_seg.decode`` returns its candidates in)."""
+    import torch
+
+    cells = []
+    for cls, _, _ in heads:
+        g = cls.shape[-1]
+        best = torch.sigmoid(cls).permute(1, 2, 0).reshape(g * g, -1).max(1).values
+        order = torch.sort(best, descending=True, stable=True)[1]
+        cells.append(order[:min(cfg.topk_per_level, g * g)])
+    return torch.cat(cells)
+
+
+def semantic_models_phase(dev, frames):
+    """Phase 18a: each semantic model at the JAX package's default
+    configuration on phase 7's frame 0, the same seeded weights on the card
+    and the CPU: outputs within DENSE_TOL of their largest magnitude and
+    labels identical but at near-ties, then the forward's time (CUDA
+    events), GFLOP from the layer shapes (and the attention and mask
+    products by hand), launches and kernel time (torch.profiler)."""
+    import copy
+
+    import torch
+
+    from pyslam_tpu_torch.models import clip, deeplabv3, detr, segformer, yolo_seg
+    from pyslam_tpu_torch.models.layers import autotuned_convs
+
+    left = np.asarray(frames[0][0], np.float32)
+    rgb = np.repeat(left[..., None], 3, axis=2)
+    prompts = [f"a photo of a {lab}" for lab in SEM_CLIP_LABELS]
+
+    def deeplab_run(m):
+        x = m.prepare(rgb)
+        return lambda: (m.logits(x),)
+
+    def segformer_run(m):
+        return lambda: (m.logits(rgb),)
+
+    def clip_run(m):
+        x = m._prep(rgb)
+        toks = torch.from_numpy(clip.tokenize(prompts, m.cfg.context)).to(torch.int64)
+
+        def run():
+            g, p = m.image_embeddings(x)
+            with torch.no_grad():
+                t = m.text(toks.to(m.device))
+            return g, p, t
+        return run
+
+    def yolo_run(m):
+        x = torch.from_numpy(m.prepare(rgb))
+
+        def run():
+            with torch.no_grad(), autotuned_convs():
+                outs, proto = m.net(x.to(m.device))
+            return tuple(t for level in outs for t in level) + (proto,)
+        return run
+
+    def detr_run(m):
+        x = m.prepare(rgb)
+        return lambda: m.run(x)
+
+    def extra_flops(name, m):
+        if name == "clip":
+            c = m.cfg
+            n = (c.img_px // c.vit_patch) ** 2 + 1
+            text = len(prompts) * c.text_depth * 4 * c.context ** 2 * c.text_dim
+            return (vit_flops(n, c.vit_dim, c.vit_depth) + text
+                    + 2 * n * c.vit_dim * c.embed_dim + 2 * len(prompts) * c.text_dim * c.embed_dim)
+        if name == "detr":
+            c = m.cfg
+            n = (c.img_px // 16) ** 2
+            q = c.num_queries
+            return (vit_flops(n, c.dim, c.enc_depth + 1)
+                    + c.dec_depth * 4 * c.dim * (q * q + q * n))
+        if name == "yolo_seg":
+            c = m.cfg
+            n = sum(min(c.topk_per_level, (c.img_px // s) ** 2) for s in yolo_seg.STRIDES)
+            return 2 * n * c.num_protos * (c.img_px // 8) ** 2
+        return 0
+
+    specs = [
+        ("deeplabv3", lambda d: deeplabv3.DeepLabV3Segmenter(device=d), deeplab_run,
+         lambda m: [m.net]),
+        ("segformer", lambda d: segformer.SegFormerInference(device=d), segformer_run,
+         lambda m: [m.net]),
+        ("clip", lambda d: clip.CLIPModel(device=d), clip_run, lambda m: [m.image, m.text]),
+        ("yolo_seg", lambda d: yolo_seg.YoloSeg(device=d), yolo_run, lambda m: [m.net]),
+        ("detr", lambda d: detr.DetrModel(device=d), detr_run, lambda m: [m.net]),
+    ]
+    out = {}
+    for name, build, runner, nets in specs:
+        t0 = time.perf_counter()
+        mc = build("cpu")
+        mg = copy.copy(mc)
+        mg.device = torch.device(dev)
+        for attr in ("net", "image", "text"):
+            if hasattr(mc, attr):
+                setattr(mg, attr, copy.deepcopy(getattr(mc, attr)).to(dev))
+        run_g, run_c = runner(mg), runner(mc)
+        og, oc = run_g(), run_c()
+        row = {}
+        if name in ("deeplabv3", "segformer"):
+            err, differ, ties_ok = _logits_err(og[0], oc[0])
+            row.update(label_differ=differ)
+        elif name == "yolo_seg":
+            # the heads and prototypes; then the decode of the CPU's heads
+            # on the card against the CPU: the kept cells identical but
+            # where two scores tie to within DENSE_TOL (saturated sigmoids
+            # the devices round a unit apart reorder), and on the cells
+            # both keep at a rank the candidates within DENSE_TOL and the
+            # classes identical
+            errs = [float((g.cpu() - c).abs().max() / max(float(c.abs().max()), 1e-30))
+                    for g, c in zip(og, oc)]
+            heads = [tuple(oc[3 * i:3 * i + 3]) for i in range(3)]
+            heads_g = [tuple(t.to(dev) for t in h) for h in heads]
+            dc = yolo_seg.decode(heads, oc[-1], mc.cfg)
+            dg = [t.cpu() for t in yolo_seg.decode(heads_g, oc[-1].to(dev), mc.cfg)]
+            same = yolo_cells(heads_g, mc.cfg).cpu() == yolo_cells(heads, mc.cfg)
+            errs += [float((g[same] - c[same]).abs().max() / max(float(c.abs().max()), 1e-30))
+                     for i, (g, c) in enumerate(zip(dg, dc)) if i != 1]
+            errs.append(float((dg[0] - dc[0]).abs().max()))          # scores, by rank
+            err = max(errs)
+            ties_ok = (bool(torch.equal(dg[1][same], dc[1][same]))
+                       and bool(((dg[0] - dc[0]).abs()[~same] <= DENSE_TOL).all()))
+            row.update(cells_reordered=int((~same).sum()), cells=int(same.numel()),
+                       heads_rel_err=max(errs[:len(oc)]))
+        elif name == "detr":
+            errs = [float((g.cpu() - c).abs().max() / max(float(c.abs().max()), 1e-30))
+                    for g, c in zip(og, oc)]
+            err, differ, ties_ok = _logits_err(og[0].T, oc[0].T)
+            err = max(errs)
+            row.update(label_differ=differ)
+        else:
+            errs = [float((g.cpu() - c).abs().max() / max(float(c.abs().max()), 1e-30))
+                    for g, c in zip(og, oc)]
+            err = max(errs)
+            sims_g = torch.nn.functional.normalize(og[1], dim=-1) @ \
+                torch.nn.functional.normalize(og[2], dim=-1).T
+            sims_c = torch.nn.functional.normalize(oc[1], dim=-1) @ \
+                torch.nn.functional.normalize(oc[2], dim=-1).T
+            _, differ, ties_ok = _logits_err(sims_g.permute(2, 0, 1), sims_c.permute(2, 0, 1))
+            row.update(label_differ=differ)
+        params = [p for net in nets(mg) for p in net.parameters()]
+        on_card = (all(p.device.type == "cuda" for p in params)
+                   and all(o.device.type == "cuda" for o in og))
+        finite = all(bool(torch.isfinite(o.float()).all()) for o in og)
+        ms = events_ms(run_g, n=5)
+        launches, kernel_ms = profile_call(run_g)
+        flops = layer_flops(nets(mg), run_g) + extra_flops(name, mg)
+        row.update(rel_err=err, near_ties_only=ties_ok, on_card=on_card, finite=finite,
+                   forward_ms=ms, gflop=flops / 1e9,
+                   fp32_peak_share=flops / (ms * 1e-3) / PEAK_FP32_FLOPS, launches=launches,
+                   kernel_ms=kernel_ms, trained=mg.trained,
+                   out_shapes=[list(o.shape) for o in og], seconds=time.perf_counter() - t0)
+        out[name] = row
+        log(f"[semantic] {name}: outputs {row['out_shapes']}, card against CPU within "
+            f"{err:.3g} of the largest magnitude, labels differing "
+            f"{row.get('label_differ', 0.0) * 100:.3f}% (near-ties only: {ties_ok})"
+            + (f", {row['cells_reordered']} of {row['cells']} decoded cells reordered at "
+               f"near-tied scores" if name == "yolo_seg" else "") + "; forward "
+            f"{ms:.2f} ms (CUDA events) for {row['gflop']:.2f} GFLOP "
+            f"({row['fp32_peak_share'] * 100:.1f}% of the float32 peak), {launches} launches "
+            f"and {kernel_ms:.2f} ms of kernel time (torch.profiler); trained {mg.trained}; "
+            f"{row['seconds']:.1f} s with the CPU run")
+        assert on_card and finite and err <= DENSE_TOL and ties_ok and not mg.trained, \
+            (name, row)
+        del mg, mc, run_g, run_c, og, oc
+        torch.cuda.empty_cache()
+    return out
+
+
+def semantic_session(dev, frames, cam, ds, sem, integ=None):
+    """Phase 18b-c: ``frames`` through the stereo Slam on the card with the
+    semantic mapper ``sem`` attached (and ``integ``), with next-frame
+    prefetch, then finish().  Returns the session's numbers, the Slam and
+    what the mapper segmented: (keyframe, image, the points it observed
+    then)."""
+    import torch
+
+    from pyslam_tpu_torch.evaluation.metrics import eval_ate
+    from pyslam_tpu_torch.features.tracker import FeatureTrackerConfig
+    from pyslam_tpu_torch.io.dataset_types import SensorType
+    from pyslam_tpu_torch.ops.fast import fast_nms
+    from pyslam_tpu_torch.slam.slam import Slam
+
+    slam = Slam(cam, FeatureTrackerConfig(num_features=N_FEATURES, num_levels=N_LEVELS),
+                sensor_type=SensorType.STEREO, device=dev)
+    if integ is not None:
+        slam.set_volumetric_integrator(integ)
+    sem.reset(slam.map)
+    slam.set_semantic_mapping(sem)
+    segmented, weights = [], []
+    process, weight = sem.process_keyframe, sem.get_semantic_weight
+
+    def recorded_process(kf, img):
+        segmented.append((kf, img, kf.points[kf.points >= 0].copy()))
+        return process(kf, img)
+
+    def recorded_weight(labels):
+        w = weight(labels)
+        weights.append((int(np.size(w)), int((np.asarray(w) < 1.0).sum())))
+        return w
+
+    sem.process_keyframe, sem.get_semantic_weight = recorded_process, recorded_weight
+    n = len(frames)
+    torch.cuda.synchronize()
+    fast_nms.launches = 0
+    lats = []
+    t_start = None
+    for i, (img_l, img_r, ts) in enumerate(frames):
+        if i == min(10, n - 1):
+            t_start = time.perf_counter()
+        nxt = None
+        if i + 1 < n:
+            nl, nr, nts = frames[i + 1]
+            nxt = {"img": nl, "img_right": nr, "frame_id": i + 1, "timestamp": nts}
+        t1 = time.perf_counter()
+        slam.track(img_l, img_right=img_r, frame_id=i, timestamp=ts, next_input=nxt)
+        lats.append(time.perf_counter() - t1)
+    slam.finish()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t_start
+    del sem.process_keyframe, sem.get_semantic_weight
+    ts_est, poses = slam.get_final_trajectory()
+    gt_t = np.asarray([ds.getTimestamp(i) for i in range(n)])
+    ate = (float(eval_ate(ts_est, poses[:, :3, 3], gt_t, ds.poses[:n, :3, 3], align=True,
+                          with_scale=False).rmse) if len(ts_est) >= 3 else float("nan"))
+    lat_ms = np.asarray(lats[min(10, n - 1):]) * 1e3
+    last = weights[-1] if weights else (0, 0)
+    out = dict(launches=fast_nms.launches, n_tracked=len(slam.tracking.history.timestamps),
+               keyframes=slam.map.num_keyframes(), points=slam.map.num_points(), ate=ate,
+               handed_over=len(segmented), queue_left=len(sem.queue),
+               labelled=sum(getattr(kf, "kps_sem", None) is not None
+                            for kf in slam.map.keyframes.values()),
+               scored_points=len(sem.point_scores), weighted_lbas=len(weights),
+               down_weighted=sum(d for _, d in weights), last_lba_observations=last[0], last_lba_down_weighted=last[1],
+               p50_ms=float(np.percentile(lat_ms, 50)), p95_ms=float(np.percentile(lat_ms, 95)),
+               fps=(n - min(10, n - 1)) / wall, wall_s=wall)
+    assert slam.map.device.type == "cuda"
+    return out, slam, segmented
+
+
+def semantic_phase(dev, frames, cam, ds, voxels_per_frame=None):
+    """Phase 18: the semantic models card against CPU (a); the weight-free
+    semantic session on phase 7's stream with the semantic integrator and
+    the BA weighting, with its floor, then one keyframe's semantic
+    integration card against CPU (b); the learned segmenters through
+    Slam.track() (c)."""
+    import torch
+
+    from pyslam_tpu_torch.config_parameters import Parameters
+    from pyslam_tpu_torch.dense.semantic_volume import SemanticFusionMethod, SemanticTSDFVolume
+    from pyslam_tpu_torch.dense.volumetric_integrator import VolumetricIntegratorType
+    from pyslam_tpu_torch.semantics.semantic_mapping import (SemanticFeatureType,
+                                                             SemanticMappingConfig,
+                                                             SemanticMappingDense)
+    from pyslam_tpu_torch.semantics.semantic_segmentation import (IntensityBandSegmentation,
+                                                                  semantic_segmentation_factory)
+    from pyslam_tpu_torch.slam.map import Map
+
+    out = {"models": semantic_models_phase(dev, frames)}
+    # 18b: the weight-free session with a floor
+    n = len(frames)
+    bands = IntensityBandSegmentation(19)
+    sem = SemanticMappingDense(Map(device=dev), SemanticMappingConfig(num_classes=19,
+                                                                      dataset="cityscapes"),
+                               segmenter=bands)
+    saved = Parameters.as_dict()
+    try:
+        integ = build_integrator(cam, dev, VolumetricIntegratorType.VOXEL_SEMANTIC_GRID)
+        Parameters.kUseSemanticsInOptimization = True
+        sb, slam, segmented = semantic_session(dev, frames, cam, ds, sem, integ)
+    finally:
+        Parameters.set_from_dict(saved)
+    assert isinstance(integ.volume, SemanticTSDFVolume)
+    # every keyframe handed over: its labels are the bands of the image it
+    # was offered, under its rounded raw keypoints; every point it observed
+    # then has scores now (or its replacement has), unless deleted since (a
+    # point a later keyframe adds to a segmented one gets none from it)
+    unscored = []
+    for kf, img, pids in segmented:
+        want = bands.infer(frames[kf.id][0])["labels"]
+        assert img is frames[kf.id][0], kf.id
+        xs = np.clip(np.round(kf.kps_raw[:, 0]).astype(int), 0, W - 1)
+        ys = np.clip(np.round(kf.kps_raw[:, 1]).astype(int), 0, H - 1)
+        assert np.array_equal(kf.kps_sem, want[ys, xs]), kf.id
+        unscored += [int(p) for p in slam.map.resolve_replacements(pids)
+                     if p >= 0 and slam.map.points.valid[p] and int(p) not in sem.point_scores]
+    dropped, valid = keyframe_drops(integ.volume, integ._depth_provider, cam, frames[-1][0],
+                                    frames[-1][1], ds.poses[n - 1])
+    if voxels_per_frame is None:
+        voxels_per_frame = frame_voxels(integ.volume, integ._depth_provider, cam, frames,
+                                        ds.poses[:n])
+    table = check_table(integ.volume.table, integ.volume.num_integrated, voxels_per_frame,
+                        dropped / max(valid, 1))
+    sb.update(unscored_points=len(unscored), integrated=integ.volume.num_integrated,
+              voxels=integ.volume.num_voxels(), load=table["load"],
+              load_ceiling=table["load_ceiling"], drop_share=table["drop_share"])
+    log(f"[semantic] weight-free session (intensity bands, 19 classes, Cityscapes weights, "
+        f"kUseSemanticsInOptimization on, VOXEL_SEMANTIC_GRID): {sb['n_tracked']}/{n} tracked, "
+        f"ATE {sb['ate']:.4f} m, {sb['fps']:.2f} FPS over frames 10-{n - 1}, p50 "
+        f"{sb['p50_ms']:.1f} ms p95 {sb['p95_ms']:.1f} ms, fast_nms launches {sb['launches']}; "
+        f"{sb['handed_over']} keyframes segmented ({sb['labelled']} of {sb['keyframes']} in the "
+        f"map labelled), {sb['scored_points']} points scored, {sb['unscored_points']} unscored; "
+        f"{sb['weighted_lbas']} weighted local BAs ({sb['down_weighted']} observations "
+        f"down-weighted in all), the last down-weighted {sb['last_lba_down_weighted']} of "
+        f"{sb['last_lba_observations']} observations; dense: "
+        f"{sb['integrated']} keyframes integrated, {sb['voxels']} voxels, load "
+        f"{sb['load']:.4f} (ceiling {sb['load_ceiling']:.4f}), drop {sb['drop_share'] * 100:.3f}%")
+    assert sb["n_tracked"] == n and sb["launches"] == n, sb
+    assert np.isfinite(sb["ate"]) and sb["ate"] < ATE_MAX, sb
+    assert sb["handed_over"] >= 2 and sb["queue_left"] == 0 and not unscored, sb
+    assert sb["integrated"] >= 1 and integ.volume.class_scores.device.type == "cuda", sb
+    # one keyframe's semantic integration, card against CPU
+    kf0 = segmented[0][0]
+    depth = integ._depth_provider.infer_depth_device(frames[kf0.id][0], frames[kf0.id][1])
+    depth = depth.cpu().numpy()
+    seg0 = bands.infer(frames[kf0.id][0])
+    fusions = {}
+    for fusion in (SemanticFusionMethod.COUNTING, SemanticFusionMethod.BAYESIAN):
+        vols = [SemanticTSDFVolume(num_classes=19, fusion=fusion, voxel_size=VOXEL_SIZE,
+                                   sdf_trunc=SDF_TRUNC, depth_trunc=DEPTH_TRUNC_OUTDOOR,
+                                   device=d) for d in (dev, "cpu")]
+        for v in vols:
+            v.integrate_semantic(depth, frames[kf0.id][0], seg0["labels"], kf0.Twc, cam.K,
+                                 label_probs=seg0["probs"])
+        vg, vc = vols
+        same = all(np.array_equal(vg._np(k), vc._np(k)) for k in ("keys", "occupied"))
+        sc = vc.class_scores
+        err = float((vg.class_scores.cpu() - sc).abs().max() / max(float(sc.abs().max()), 1e-30))
+        fusions[fusion.value] = dict(slots_keys_identical=same, class_scores_rel_err=err,
+                                     voxels=vg.num_voxels())
+        log(f"[semantic] integrate_semantic {fusion.value} on keyframe {kf0.kid} (frame "
+            f"{kf0.id}): {vg.num_voxels()} voxels, slots and keys "
+            f"{'identical' if same else 'DIFFER'} on the card and the CPU, class scores within "
+            f"{err:.3g} of the largest")
+        assert same and err <= SEM_SCORES_TOL and vg.num_voxels() > 0, fusions
+        del vols, vg, vc
+    sb["integrate_semantic"] = fusions
+    out["session"] = sb
+    del slam, integ, segmented
+    torch.cuda.empty_cache()
+    # 18c: the learned segmenters through Slam.track() (random weights)
+    learned = {}
+    m = SEM_LEARNED_FRAMES
+    for name, cfg in (("segformer", SemanticMappingConfig("segformer", 19)),
+                      ("clip", SemanticMappingConfig(
+                          "clip", feature_type=SemanticFeatureType.FEATURE_VECTOR))):
+        seg = semantic_segmentation_factory(cfg.segmentation_type, cfg.num_classes, device=dev)
+        sem = SemanticMappingDense(Map(device=dev), cfg, segmenter=seg)
+        sess, slam, segmented = semantic_session(dev, frames[:m], cam, ds, sem)
+        nets = [seg.model.net] if name == "segformer" else [seg.model.image, seg.model.text]
+        params = {p.device.type for net in nets for p in net.parameters()}
+        if name == "clip":
+            pids, sims = sem.query_points_by_text("vehicle", top_k=10)
+            sess.update(query_pids=len(pids), query_best=float(sims[0]) if len(sims) else None,
+                        embedded_points=len(sem.point_embeddings))
+            assert len(pids) > 0 and np.isfinite(sims).all(), sess
+        learned[name] = sess
+        log(f"[semantic] {name} through Slam.track(): {sess['n_tracked']}/{m} tracked, ATE "
+            f"{sess['ate']:.4f} m, {sess['handed_over']} keyframes segmented on the card "
+            f"({sess['labelled']} of {sess['keyframes']} in the map labelled), "
+            f"{sess['scored_points']} points scored, p50 {sess['p50_ms']:.1f} ms, fast_nms "
+            f"launches {sess['launches']}"
+            + (f"; query 'vehicle': {sess['query_pids']} points, best {sess['query_best']:.4f}"
+               if name == "clip" else "") + " (random weights: no floor)")
+        assert params == {"cuda"} and seg.device.type == "cuda", (name, params)
+        assert sess["handed_over"] >= 1 and sess["queue_left"] == 0, sess
+        assert sess["launches"] == m, sess
+        del seg, sem, slam, segmented
+        torch.cuda.empty_cache()
+    out["learned_sessions"] = learned
     return out
 
 
@@ -3094,12 +3580,17 @@ def main():
     # ---------------------------------------------------------------- 17
     PHASE_START.append((17, time.perf_counter()))
     depth = depth_phase(dev, frames, cam, ds)
-    depth["wall_s"] = time.perf_counter() - T_START
-    ends = [t for _, t in PHASE_START[1:]] + [time.perf_counter()]
-    depth["phase_s"] = {ph: round(end - t, 1) for (ph, t), end in zip(PHASE_START, ends)}
-    log(f"[time] the script so far {depth['wall_s']:.1f} s; seconds a phase "
-        f"{json.dumps(depth['phase_s'])}")
     print(json.dumps({"depth": depth}, default=float), flush=True)
+
+    # ---------------------------------------------------------------- 18
+    PHASE_START.append((18, time.perf_counter()))
+    semantic = semantic_phase(dev, frames, cam, ds, voxels_per_frame)
+    semantic["wall_s"] = time.perf_counter() - T_START
+    ends = [t for _, t in PHASE_START[1:]] + [time.perf_counter()]
+    semantic["phase_s"] = {ph: round(end - t, 1) for (ph, t), end in zip(PHASE_START, ends)}
+    log(f"[time] the script so far {semantic['wall_s']:.1f} s; seconds a phase "
+        f"{json.dumps(semantic['phase_s'])}")
+    print(json.dumps({"semantic": semantic}, default=float), flush=True)
 
     print(json.dumps({"kernels": [{
         "name": "fast_nms", "route": "cuda",
@@ -3119,6 +3610,7 @@ def main():
         "launches_depth_anything_v2_stage":
             depth["learned_upgrade"]["depth_anything_v2"]["launches"],
         "launches_depth_mast3r_stage": depth["learned_upgrade"]["mast3r"]["launches"],
+        "launches_semantic_stage": semantic["session"]["launches"],
         "mono_frame": one["b1_pyramid"], "vo_rgbd_level_th15": one["vo_level_th15"],
         "max_abs_err": max_err, "ms": kern_ms, "plain_ms": plain_ms,
         "bound_ms": work["bound_ms"], "bound_by": work["bound_by"], "library_ms": None,

@@ -6,7 +6,7 @@ Analog of the reference's static ``Parameters`` class
 
 Copied from ``pyslam_tpu/config_parameters.py``, keeping only the flags this
 package reads, with the same values. The flags of the subsystems not ported
-yet (semantics, the learned models) come with the code that reads them;
+yet come with the code that reads them;
 the thread/process, viewer, GTSAM and debug-file flags have no counterpart
 here.
 """
@@ -145,6 +145,9 @@ class Parameters:
     kVolumetricIntegrationTableCapacity = 1 << 22
     # max voxel samples on each side of the measured surface per depth ray
     kVolumetricIntegrationBandMaxSteps = 2
+
+    # ------------------------------------------------------------ semantics
+    kUseSemanticsInOptimization = False     # semantic BA weighting (ref :402)
 
     # ------------------------------------------------------------- storage
     kMapPointCapacityInitial = 1 << 15      # initial SoA map-point capacity

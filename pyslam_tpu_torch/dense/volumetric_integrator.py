@@ -11,9 +11,11 @@ frames.  With an SGM depth the depth stays on the device from SGM to the
 TSDF and is dropped after the last phase; ``rebuild`` re-estimates it.  An
 estimator without a device path (a monocular network, or a stereo one
 given no right image) gives a host depth, kept with the snapshot, whose
-first TSDF phase runs in the same call.  The semantic and
-Gaussian-splatting integrators are not ported (ROADMAP.md section 1, items
-3.4 and 4.1).
+first TSDF phase runs in the same call.  The two semantic types build a
+``SemanticTSDFVolume`` (``dense/semantic_volume.py``), which the keyframe
+path integrates as a TSDF, as the reference's does: its class scores move
+only through ``integrate_semantic``.  The Gaussian-splatting integrator
+is not ported (ROADMAP.md section 1, item 4.1).
 """
 
 from __future__ import annotations
@@ -25,6 +27,7 @@ import numpy as np
 import torch
 
 from pyslam_tpu_torch.config_parameters import Parameters
+from pyslam_tpu_torch.dense.semantic_volume import SemanticTSDFVolume
 from pyslam_tpu_torch.dense.tsdf import TSDFVolume
 from pyslam_tpu_torch.utils.device import same_device
 from pyslam_tpu_torch.utils.logging import Printer
@@ -210,15 +213,17 @@ def volumetric_integrator_factory(integrator_type=VolumetricIntegratorType.TSDF,
                                   **kw) -> VolumetricIntegrator:
     if isinstance(integrator_type, str):
         integrator_type = VolumetricIntegratorType(integrator_type.lower())
-    if integrator_type not in (VolumetricIntegratorType.TSDF,
-                               VolumetricIntegratorType.VOXEL_GRID):
-        item = "4.1" if integrator_type == VolumetricIntegratorType.GAUSSIAN_SPLATTING else "3.4"
+    if integrator_type == VolumetricIntegratorType.GAUSSIAN_SPLATTING:
         raise NotImplementedError(f"integrator {integrator_type.name} is not ported yet "
-                                  f"(ROADMAP.md section 1 item {item})")
+                                  f"(ROADMAP.md section 1 item 4.1)")
     depth_trunc = (Parameters.kVolumetricIntegrationDepthTruncOutdoor
                    if getattr(environment_type, "name", "") == "OUTDOOR"
                    else Parameters.kVolumetricIntegrationDepthTruncIndoor)
-    vol = TSDFVolume(depth_trunc=depth_trunc, device=device, **kw)
+    if integrator_type in (VolumetricIntegratorType.VOXEL_SEMANTIC_GRID,
+                           VolumetricIntegratorType.VOXEL_SEMANTIC_PROBABILISTIC_GRID):
+        vol = SemanticTSDFVolume(depth_trunc=depth_trunc, device=device, **kw)
+    else:
+        vol = TSDFVolume(depth_trunc=depth_trunc, device=device, **kw)
     integ = VolumetricIntegrator(camera, integrator_type, vol, device=device)
     if Parameters.kVolumetricIntegrationUseDepthEstimator:
         # estimate dense depth inside the integrator for sensors without

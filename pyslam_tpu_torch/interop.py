@@ -21,15 +21,22 @@ dense matchers' and VPR networks' ``loftr_state_dict``,
 ``megaloc_state_dict`` and ``alexnet_state_dict``, and the depth
 models' ``dpt_lite_state_dict``, ``depth_anything_v2_state_dict``,
 ``da3_state_dict``, ``depth_pro_state_dict``, ``raft_stereo_state_dict``,
-``crestereo_state_dict`` and ``mvdust3r_state_dict`` take the JAX
+``crestereo_state_dict`` and ``mvdust3r_state_dict``, and the semantic
+models' ``deeplabv3_state_dict``, ``segformer_state_dict``,
+``clip_state_dict``, ``yolo_seg_state_dict`` and ``detr_state_dict`` take the JAX
 package's flat parameters (the ``params/...`` keys of its ``.npz``
 checkpoints, numpy arrays, as ``pyslam_tpu/models/torch_convert.py``
 flattens them) and return the port's ``state_dict``: a flax convolution
 kernel (kh, kw, I, O) becomes (O, I, kh, kw), a Dense kernel (in, out) an
 ``nn.Linear`` weight (out, in) (a Dense over k*k taps a conv weight), a
 LayerNorm ``scale`` its ``weight``, a flax module path the official
-module's name where the port keeps an official layout; batch-norm
-statistics, ``rotary_w`` and ``gem_p`` keep their values.  ``bundled_checkpoint``
+module's name where the port keeps an official layout, an ``Embed``'s
+``embedding`` an ``nn.Embedding`` weight; batch-norm statistics,
+``rotary_w``, ``gem_p`` and the other raw parameters (position
+embeddings, class tokens, CLIP's projections) keep their values.
+``segformer_npz_state_dict`` reads the JAX package's SegFormer ``.npz``,
+whose values follow the sorted order of its keys, leaf by leaf of the
+flax tree.  ``bundled_checkpoint``
 finds the JAX package's bundled checkpoints by path (a data file, not an
 import); ``seeded_init_`` draws the random weights a model falls back to
 without one.
@@ -356,3 +363,61 @@ depth_pro_state_dict = same_names_state_dict
 raft_stereo_state_dict = same_names_state_dict
 crestereo_state_dict = same_names_state_dict
 mvdust3r_state_dict = same_names_state_dict
+
+
+# ---------------------------------------------------------- semantic models
+def deeplabv3_state_dict(flat: dict) -> dict[str, torch.Tensor]:
+    """``DeepLabV3`` weights: ``backbone/...`` as ``resnet_state_dict``
+    maps it (torchvision names), the head's modules keep the flax names."""
+    return _convert(flat, lambda p: ("backbone." + _resnet_module(p[1:])
+                                     if p[0] == "backbone" else ".".join(p)))
+
+
+segformer_state_dict = same_names_state_dict
+
+
+def _flax_leaf_paths(net: torch.nn.Module) -> list[tuple[tuple, str]]:
+    """(flax path, state_dict key) of every weight of a module that
+    carries the flax names, in the flax tree's leaf order (keys sorted at
+    every level): a Conv / Dense weight is a ``kernel``, a LayerNorm's a
+    ``scale``."""
+    out = []
+    for mname, mod in net.named_modules():
+        for pname, _ in mod.named_parameters(recurse=False):
+            leaf = pname
+            if pname == "weight":
+                leaf = "scale" if isinstance(mod, torch.nn.LayerNorm) else "kernel"
+            path = ("params",) + (tuple(mname.split(".")) if mname else ()) + (leaf,)
+            out.append((path, f"{mname}.{pname}" if mname else pname))
+    return sorted(out)
+
+
+def segformer_npz_state_dict(path: str, net: torch.nn.Module) -> dict[str, torch.Tensor]:
+    """The JAX package's SegFormer checkpoint (``SegFormerInference.
+    load_checkpoint``: the i-th of the file's sorted keys is the flax
+    tree's i-th leaf) -> ``SegFormerNet`` weights."""
+    z = read_npz(path)
+    leaves = _flax_leaf_paths(net)
+    if len(z) != len(leaves):
+        raise ValueError(f"{path}: {len(z)} arrays for {len(leaves)} weights")
+    return {key: _leaf(fpath[-1], z[name])
+            for (fpath, key), name in zip(leaves, sorted(z))}
+
+
+def _embed_renamed(sd: dict) -> dict[str, torch.Tensor]:
+    return {(k[: -len("embedding")] + "weight" if k.endswith(".embedding") else k): v
+            for k, v in sd.items()}
+
+
+def clip_state_dict(flat: dict) -> dict[str, torch.Tensor]:
+    """A CLIP tower's weights (``CLIPImageTower`` or ``CLIPTextTower``):
+    the modules keep the flax names, ``token_embed``'s ``embedding``
+    becomes its weight, ``cls`` / ``pos_embed`` / ``proj`` keep their
+    values."""
+    return _embed_renamed(same_names_state_dict(flat))
+
+
+# YOLO-seg and DETR carry the flax names (BN statistics are parameters of
+# the JAX package's ``BN``, buffers of the port's)
+yolo_seg_state_dict = same_names_state_dict
+detr_state_dict = same_names_state_dict

@@ -2,7 +2,7 @@
 ``main_slam.py``; reference: pySLAM ``main_slam.py``).
 
 Runs the pipeline — tracking, local mapping, loop closing and optionally
-volumetric integration — over a configured or synthetic dataset on one
+volumetric integration and semantic mapping — over a configured or synthetic dataset on one
 device, writes the trajectory, evaluates ATE, and optionally saves the
 system state (``map.json`` and the rest, with ``other_metrics_info.txt``).
 
@@ -18,8 +18,11 @@ is the integrator's estimator.  A stereo estimator (``sgbm``, or
 ``raft_stereo`` / ``crestereo`` routed to it without weights) needs the
 right image: the synthetic demo stream renders it for ``--sensor mono``
 (the reference's stream has none and its SGBM stops there), a configured
-monocular dataset without one is refused.  ``--viewer`` and
-``--semantics`` are refused with the ROADMAP.md item each waits on.
+monocular dataset without one is refused.  ``--semantics`` attaches the
+semantic mapper (``semantic_mapping_factory(slam.map)``: the weight-free
+intensity bands, as the reference's default), which labels each keyframe
+and its map points.  ``--viewer`` is refused with the ROADMAP.md item it
+waits on.
 """
 
 from __future__ import annotations
@@ -47,8 +50,6 @@ from pyslam_tpu_torch.utils.timer import TimerFps
 
 SENSORS = {"mono": SensorType.MONOCULAR, "stereo": SensorType.STEREO, "rgbd": SensorType.RGBD}
 VIEWER_ITEM = "ROADMAP.md section 1 item 4.2 (viz/: html_viewer, live_viewer, viewer3d)"
-SEMANTICS_ITEM = ("ROADMAP.md section 1 item 3.4 (the semantic models, semantics/ and "
-                  "dense/semantic_volume.py)")
 # latency percentiles skip the first frames (initialisation, first keyframes)
 LATENCY_SKIP = 10
 
@@ -80,7 +81,7 @@ def _parser() -> argparse.ArgumentParser:
                          "mvdust3r): upgrades a monocular session to RGBD, and is the "
                          "integrator's estimator for --volumetric on stereo or mono")
     ap.add_argument("--semantics", action="store_true",
-                    help=f"not ported: {SEMANTICS_ITEM}")
+                    help="semantic mapping: segment keyframes, fuse labels into map points")
     ap.add_argument("--save_state", default=None, help="folder for map.json")
     ap.add_argument("--load_state", default=None)
     ap.add_argument("--save_trajectory", default=None)
@@ -102,8 +103,6 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
     if args.viewer:
         ap.error(f"--viewer is not ported yet: {VIEWER_ITEM}")
-    if args.semantics:
-        ap.error(f"--semantics is not ported yet: {SEMANTICS_ITEM}")
     device = check_device(ap, args.device)
     stereo_estimator = False
     if args.depth_estimator:
@@ -189,6 +188,14 @@ def main(argv=None) -> int:
             VolumetricIntegratorType.TSDF, camera=camera,
             environment_type=dataset.environment_type, device=device)
         slam.set_volumetric_integrator(integrator)   # saved with the state
+    semantic_mapping = None
+    if args.semantics:
+        from pyslam_tpu_torch.semantics.semantic_mapping import semantic_mapping_factory
+
+        # local mapping hands it each keyframe and weights its BA by class
+        # (kUseSemanticsInOptimization)
+        semantic_mapping = semantic_mapping_factory(slam.map, device=device)
+        slam.set_semantic_mapping(semantic_mapping)
     if args.load_state:
         slam.load_system_state(args.load_state)
 
@@ -269,6 +276,10 @@ def main(argv=None) -> int:
                                 if slam.loop_closing is not None else 0),
                "volumetric_keyframes": len(integrator.snapshots) if integrator else 0,
                "volumetric_integrated": integrator.volume.num_integrated if integrator else 0,
+               "semantic_keyframes": sum(getattr(kf, "kps_sem", None) is not None
+                                         for kf in slam.map.keyframes.values()),
+               "semantic_points": (len(semantic_mapping.point_scores)
+                                   if semantic_mapping is not None else 0),
                "stage_totals_ms": {mod: {k: v["total_ms"] for k, v in st.items()}
                                    for mod, st in slam.timings().items()}}
     if gt is not None and len(ts) > 3:

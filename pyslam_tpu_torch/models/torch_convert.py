@@ -296,3 +296,36 @@ def depth_anything_v2_from_torch(state_dict, cfg) -> dict[str, torch.Tensor]:
 
 def depth_anything_v2_from_torch_file(path: str, cfg) -> dict[str, torch.Tensor]:
     return depth_anything_v2_from_torch(load_torch_file(path), cfg)
+
+
+# --------------------------------------------------------------- DeepLabv3
+# torchvision's DeepLabHead -> the port's names: ASPP ``convs.0-3`` (conv,
+# bn), the pooling branch ``convs.4`` ([0] the pool, [1] conv, [2] bn), the
+# projection, then the head's 3x3 conv + BN and the 1x1 classifier
+_DEEPLAB_HEAD = {"classifier.0.convs.0.0": "aspp.conv0.conv",
+                 "classifier.0.convs.0.1": "aspp.conv0.bn",
+                 "classifier.0.convs.1.0": "aspp.conv1.conv",
+                 "classifier.0.convs.1.1": "aspp.conv1.bn",
+                 "classifier.0.convs.2.0": "aspp.conv2.conv",
+                 "classifier.0.convs.2.1": "aspp.conv2.bn",
+                 "classifier.0.convs.3.0": "aspp.conv3.conv",
+                 "classifier.0.convs.3.1": "aspp.conv3.bn",
+                 "classifier.0.convs.4.1": "aspp.pool_conv.conv",
+                 "classifier.0.convs.4.2": "aspp.pool_conv.bn",
+                 "classifier.0.project.0": "aspp.project.conv",
+                 "classifier.0.project.1": "aspp.project.bn",
+                 "classifier.1": "head.conv", "classifier.2": "head.bn",
+                 "classifier.4": "out"}
+
+
+def deeplabv3_from_torch(state_dict) -> dict[str, torch.Tensor]:
+    """A torchvision ``deeplabv3_resnet*`` state dict -> ``DeepLabV3``
+    weights: the backbone keeps its names (``fc`` and the batch counters
+    dropped), the head is renamed, ``aux_classifier`` is dropped."""
+    sd = {k: v for k, v in state_dict.items() if not k.startswith("aux_classifier")}
+    out = {f"backbone.{k}": v for k, v in resnet_from_torch(sd, prefix="backbone.").items()}
+    for k, v in sd.items():
+        if k.startswith("classifier.") and not k.endswith("num_batches_tracked"):
+            mod, leaf = k.rsplit(".", 1)
+            out[f"{_DEEPLAB_HEAD[mod]}.{leaf}"] = v
+    return out

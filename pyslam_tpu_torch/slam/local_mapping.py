@@ -1,12 +1,14 @@
-"""Local mapping back-end (port of ``pyslam_tpu/slam/local_mapping.py``
-without the semantic hand-off).
+"""Local mapping back-end (port of ``pyslam_tpu/slam/local_mapping.py``).
 
 Per new keyframe: associate and refresh its map points -> cull recent
 points -> triangulate new points against covisible neighbours (epipolar-
 gated matching on the device, DLT on the host) -> fuse duplicates -> local
 bundle adjustment over the covisibility window -> cull redundant keyframes
--> hand the keyframe to loop closing and to the volumetric integrator,
-where they are attached.
+-> hand the keyframe to loop closing, the semantic mapper and the
+volumetric integrator, where they are attached.  With
+``Parameters.kUseSemanticsInOptimization`` and a semantic mapper, the local
+BA scales each observation's information by its keypoint's class weight
+(``sigma2 / w``) once any keyframe of the window is labelled.
 
 Scheduling: one host thread.  Each tracked frame advances the back-end by
 bounded slices (``step_async``); device stages are dispatched and their
@@ -108,6 +110,7 @@ class LocalMapping:
         self.lba_applied = 0
         self.volumetric_integrator = None   # attached by Slam.set_volumetric_integrator
         self.loop_closing = None            # attached by Slam
+        self.semantic_mapping = None        # attached by Slam.set_semantic_mapping
         self.timings = StageTimings("local_mapping")
         self._kf_store: KFDeviceStore | None = None
         dev = self.device
@@ -244,6 +247,8 @@ class LocalMapping:
             self._trim_device_caches(kf)
             if self.loop_closing is not None:
                 self.loop_closing.add_keyframe(kf)
+            if self.semantic_mapping is not None:
+                self.semantic_mapping.add_keyframe(kf)
             if self.volumetric_integrator is not None:
                 self.volumetric_integrator.add_keyframe(kf)
             self._job = None
@@ -497,12 +502,22 @@ class LocalMapping:
         cam = np.where(ok, lut[np.clip(kids_arr, 0, max_kid)], -1)
         ok &= cam >= 0
         pt_rows, kp_arr, cam = pt_rows[ok], kp_arr[ok], cam[ok]
-        kps_stack = np.stack([m.keyframes[k].kps for k in all_kids])
-        ur_stack = np.stack([m.keyframes[k].kps_ur for k in all_kids])
-        lvl_stack = np.stack([m.keyframes[k].levels for k in all_kids])
+        kfs = [m.keyframes[k] for k in all_kids]
+        kps_stack = np.stack([k_f.kps for k_f in kfs])
+        ur_stack = np.stack([k_f.kps_ur for k_f in kfs])
+        lvl_stack = np.stack([k_f.levels for k_f in kfs])
+        sig2 = self.tracker.sigma2[lvl_stack[cam, kp_arr]]
+        # semantic weighting: information *= w, i.e. sigma2 /= w, gated on
+        # ANY labelled keyframe of the window (the newest is labelled only
+        # after its LBA); unlabelled keyframes weigh 1
+        if (Parameters.kUseSemanticsInOptimization and self.semantic_mapping is not None
+                and any(getattr(k_f, "kps_sem", None) is not None for k_f in kfs)):
+            sem_stack = np.stack([k_f.kps_sem if getattr(k_f, "kps_sem", None) is not None
+                                  else np.full(len(k_f.kps), -1, np.int64) for k_f in kfs])
+            w = self.semantic_mapping.get_semantic_weight(sem_stack[cam, kp_arr])
+            sig2 = sig2 / np.maximum(np.asarray(w, np.float64), 1e-6)
         return (cam, pt_rows, kps_stack[cam, kp_arr].astype(np.float32),
-                ur_stack[cam, kp_arr].astype(np.float32),
-                self.tracker.sigma2[lvl_stack[cam, kp_arr]].astype(np.float32))
+                ur_stack[cam, kp_arr].astype(np.float32), sig2.astype(np.float32))
 
     def _lba_build(self, kf: KeyFrame):
         """The BAProblem of kf's covisibility window (with the reference's

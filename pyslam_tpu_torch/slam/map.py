@@ -93,6 +93,10 @@ class Map:
         self._dirty_overflow = True          # True => full upload needed
         # observations: pid -> {kid: kp_idx}
         self.observations: dict[int, dict[int, int]] = {}
+        # callbacks fired on delete_point(pid)/replace_point(old,new) so
+        # sidecar per-point stores (semantic accumulators, embeddings) can
+        # prune/merge; signature cb(old_pid, new_pid_or_None)
+        self.point_removal_listeners: list = []
         self.max_frame_id = 0
         self.max_keyframe_id = 0
         # per-map kid counter: keyframe ids must be sequential WITHIN a map
@@ -245,6 +249,8 @@ class Map:
             if kf is not None and kf.points[kp_idx] == pid:
                 kf.points[kp_idx] = -1
         self.points.valid[pid] = False
+        for cb in self.point_removal_listeners:
+            cb(int(pid), None)
 
     def replace_point(self, old_pid: int, new_pid: int):
         """MapPoint.replace_with semantics (reference map_point.py): rebind all
@@ -271,6 +277,8 @@ class Map:
         st.num_obs[new_pid] = len(self.observations.get(new_pid, {}))
         st.replaced_by[old_pid] = new_pid
         st.valid[old_pid] = False
+        for cb in self.point_removal_listeners:
+            cb(int(old_pid), int(new_pid))
 
     def resolve_replacements(self, pids: np.ndarray) -> np.ndarray:
         """Follow replaced_by chains (bounded) for an id array."""

@@ -5,7 +5,8 @@
 MONOCULAR, device=...)`` with ``track()``, ``finish()``,
 ``get_final_trajectory()``, ``get_keyframe_trajectory()``,
 ``bundle_adjust()``, ``timings()``, ``timings_summary()``,
-``set_volumetric_integrator()``, ``reset()`` and the system state's
+``set_volumetric_integrator()``, ``set_semantic_mapping()``, ``reset()``
+and the system state's
 ``save_system_state()`` / ``load_system_state()`` (``map.json`` in the
 native or the reference's schema, ``config_info.json``, the loop-closing
 DB and the volumetric state).  A loaded map lives on the session's
@@ -13,10 +14,10 @@ device, and the session relocalises in it (``INIT_RELOCALIZE``).  The host
 drives everything in one thread: ``track()`` harvests finished back-end
 work, tracks the frame, snapshots a new keyframe's images (and an RGBD
 keyframe's sensor depth, so the integrator takes it instead of estimating
-one) for the volumetric integrator, advances local mapping by a bounded
-slice, services loop closing (one keyframe's detection, or a poll of the
-asynchronous GBA) and issues one integrator stage; the device queue gives
-the overlap.
+one) for the volumetric integrator and the semantic mapper, advances local
+mapping by a bounded slice, services loop closing (one keyframe's
+detection, or a poll of the asynchronous GBA), issues one integrator stage
+and segments at most one keyframe; the device queue gives the overlap.
 
 ``depth_estimator=`` upgrades a MONOCULAR session to RGBD, as the
 reference does: ``track()`` estimates the frame's depth
@@ -90,6 +91,7 @@ class Slam:
                                  self.local_mapping)
         self._prefetched = None   # (frame_id, Frame) built during the last call
         self.volumetric_integrator = None
+        self.semantic_mapping = None   # attached by set_semantic_mapping()
         self._last_input = None   # (frame_id, (img, img_right, depth)) of the last call
         self.loop_closing = None
         self.GBA = None
@@ -144,12 +146,12 @@ class Slam:
             Printer.yellow("Slam: resetting session (early tracking loss)")
             self.reset()
         # a keyframe created this frame: snapshot its images (and sensor
-        # depth) for the integrator, which takes them when local mapping
-        # hands the keyframe over (a keyframe made from the previous call's
-        # input takes that)
-        vi = self.volumetric_integrator
+        # depth) for the integrator and the semantic mapper, which take them
+        # when local mapping hands the keyframe over (a keyframe made from
+        # the previous call's input takes that)
+        vi, sm = self.volumetric_integrator, self.semantic_mapping
         kf = self.tracking.kf_ref
-        if vi is not None and kf is not None:
+        if kf is not None and (vi is not None or sm is not None):
             imgs = None
             if kf.id == frame_id:
                 imgs = (img, img_right, depth)
@@ -157,16 +159,21 @@ class Slam:
                 imgs = self._last_input[1]
             if imgs is not None:
                 l_img, l_right, l_depth = imgs
-                vi.offer_keyframe_data(
-                    kf, intensity=l_img, img_right=l_right,
-                    depth=None if l_depth is None
-                    else np.where(np.asarray(l_depth) > 0, l_depth, 0.0))
+                if vi is not None:
+                    vi.offer_keyframe_data(
+                        kf, intensity=l_img, img_right=l_right,
+                        depth=None if l_depth is None
+                        else np.where(np.asarray(l_depth) > 0, l_depth, 0.0))
+                if sm is not None:
+                    sm.offer_keyframe_image(kf.kid, l_img)
         self._last_input = (frame_id, (img, img_right, depth))
         self.local_mapping.step_async()
         if self.loop_closing is not None:
             self.loop_closing.step()
         if vi is not None:
             vi.step()   # at most one integration stage a frame
+        if sm is not None:
+            sm.step()   # at most one segmentation a frame
         return frame
 
     def finish(self):
@@ -176,6 +183,8 @@ class Slam:
             self.loop_closing.finish()
         if self.volumetric_integrator is not None:
             self.volumetric_integrator.run_all()
+        if self.semantic_mapping is not None:
+            self.semantic_mapping.run_all()
 
     @property
     def state(self) -> TrackingState:
@@ -209,6 +218,18 @@ class Slam:
         self.volumetric_integrator = integrator
         self.local_mapping.volumetric_integrator = integrator
 
+    def set_semantic_mapping(self, semantic_mapping):
+        """Attach a semantic mapper: local mapping hands it each digested
+        keyframe and, with ``kUseSemanticsInOptimization``, weights its BA
+        by the keypoints' classes; ``track()`` segments one keyframe a
+        frame.  A segmenter with a network must live on this Slam's device
+        (the weight-free one runs on the host)."""
+        seg_dev = getattr(getattr(semantic_mapping, "segmenter", None), "device", None)
+        if seg_dev is not None and not same_device(seg_dev, self.device):
+            raise ValueError(f"segmenter on {seg_dev}, Slam on {self.device}")
+        self.semantic_mapping = semantic_mapping
+        self.local_mapping.semantic_mapping = semantic_mapping
+
     def _adopt_map(self, new_map: Map):
         """Point every module at ``new_map`` and drop the work queued for
         the old one: the prefetched frame, local mapping's queue, jobs and
@@ -225,6 +246,8 @@ class Slam:
         self.tracking.map = new_map
         if self.loop_closing is not None:
             self.loop_closing.map = new_map
+        if self.semantic_mapping is not None:
+            self.semantic_mapping.reset(new_map)
 
     def reset(self):
         self.tracking.reset_requested = False

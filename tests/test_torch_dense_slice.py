@@ -133,6 +133,13 @@ def test_integrator_refuses_another_device():
         TV.VolumetricIntegrator(cam, volume=vol, device="meta")
     with pytest.raises(NotImplementedError, match="item 4.1"):
         TV.volumetric_integrator_factory("gaussian_splatting", camera=cam, device="cpu")
+    from pyslam_tpu_torch.dense.semantic_volume import SemanticTSDFVolume
+
+    for kind in ("voxel_semantic_grid", "voxel_semantic_probabilistic_grid"):
+        integ = TV.volumetric_integrator_factory(kind, camera=cam, device="cpu",
+                                                 capacity=1 << 8)
+        assert isinstance(integ.volume, SemanticTSDFVolume)
+        assert integ.volume.class_scores.shape == (1 << 8, 21)
     slam = Slam(cam, FeatureTrackerConfig(num_features=100, num_levels=2),
                 sensor_type=SensorType.STEREO, device="cpu")
     meta = TV.VolumetricIntegrator(cam, volume=TV.TSDFVolume(capacity=1 << 8, device="meta"),

@@ -169,6 +169,18 @@ def test_main_slam_synthetic(tmp_path):
     assert os.path.exists(f"{state}/map.json")
 
 
+def test_main_slam_semantics(tmp_path):
+    """``--semantics`` (it was refused before the semantic slice): the
+    intensity-band mapper labels the keyframes and their points."""
+    state = str(tmp_path / "state")
+    assert main_slam.main(["--device", "cpu", "--frames", "8", "--semantics",
+                           "--no_loop_closing", "--save_state", state]) == 0
+    metrics = json.load(open(f"{state}/other_metrics_info.txt"))
+    assert metrics["num_tracked"] == 8 and metrics["num_lost"] == 0
+    assert 0 < metrics["semantic_keyframes"] <= metrics["num_keyframes"]
+    assert metrics["semantic_points"] > 0
+
+
 def test_main_slam_profile_writes_a_trace(tmp_path):
     logdir = str(tmp_path / "trace")
     assert main_slam.main(["--device", "cpu", "--frames", "2", "--no_loop_closing",
@@ -218,7 +230,6 @@ def test_main_slam_evaluation(kitti, tmp_path):
 
 @pytest.mark.parametrize("args,item", [
     (["--viewer"], "ROADMAP.md section 1 item 4.2"),
-    (["--semantics"], "ROADMAP.md section 1 item 3.4"),
     (["--depth_estimator", "no_such_estimator"], "one of sgbm, depth_anything_v2"),
     (["--config", "mono_kitti", "--depth_estimator", "sgbm"], "needs a stereo pair"),
 ])

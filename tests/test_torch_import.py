@@ -39,6 +39,14 @@ def test_import_loads_no_jax():
         "import pyslam_tpu_torch.models.raft_stereo, pyslam_tpu_torch.models.crestereo\n"
         "import pyslam_tpu_torch.models.mvdust3r, pyslam_tpu_torch.models.torch_convert\n"
         "import pyslam_tpu_torch.main_depth_prediction\n"
+        "import pyslam_tpu_torch.models.deeplabv3, pyslam_tpu_torch.models.segformer\n"
+        "import pyslam_tpu_torch.models.clip, pyslam_tpu_torch.models.yolo_seg\n"
+        "import pyslam_tpu_torch.models.detr, pyslam_tpu_torch.semantics.semantic_eval\n"
+        "import pyslam_tpu_torch.semantics.semantic_mapping, pyslam_tpu_torch.dense.semantic_volume\n"
+        "import pyslam_tpu_torch.main_semantic_image_segmentation\n"
+        "from pyslam_tpu_torch.semantics.semantic_segmentation import semantic_segmentation_factory\n"
+        "for t in ('deeplabv3', 'segformer', 'yolo', 'rf_detr'):\n"
+        "    semantic_segmentation_factory(t, device='meta')\n"
         "from pyslam_tpu_torch.depth_estimation.depth_estimator import depth_estimator_factory\n"
         "for t in ('depth_anything_v2', 'depth_anything_v3', 'mvdust3r', 'depth_pro'):\n"
         "    depth_estimator_factory(t, device='meta')\n"
