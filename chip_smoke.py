@@ -242,8 +242,40 @@ Phases (one line each, and any failure exits non-zero):
      c. SEGFORMER and CLIP (FEATURE_VECTOR, ending in query_points_by_text)
         sessions of SEM_LEARNED_FRAMES frames, every keyframe segmented on
         the card (random weights: no floor).
-     A ``semantic`` JSON line gathers their numbers and the script's wall
-     time.
+     A ``semantic`` JSON line gathers their numbers.
+ 19. 3D reconstruction from views and Gaussian-splatting dense mapping,
+     seeded random weights (no reconstruction model has a checkpoint in the
+     repository):
+     a. VGGT and Fast3R at their default configurations (224x224, patch 16,
+        dim 768, 12 + 12 blocks, 12 heads) on the 6 views of
+        main_scene_from_views, card against CPU within RECON_TOL of each
+        output's largest magnitude (points, confidences, poses, fov, anchor
+        mass; local points and confidences); forward ms, GFLOP from the
+        layer shapes and the attention products, share of the float32
+        peak, launches and kernel ms;
+     b. ``main_scene_from_views --type geometric --views 6`` on the card:
+        one fast_nms launch a view, the per-pair match counts identical to
+        the same run on the CPU, every pair at least 30 matches, each view's
+        rotation against the ground truth under SCENE_ROT_MAX_DEG, a finite
+        non-empty cloud, the saved npz reloads;
+     c. every other SceneFromViewsType through the factory on those views:
+        finite (V, 4, 4) poses and a finite non-empty cloud, seconds each;
+     d. phase 9's RGBD stream cut to GS_FRAMES frames through
+        Slam(sensor_type=RGBD).track() with the Gaussian-splatting
+        integrator at its defaults (capacity 60000, tile_k 48, 30 steps,
+        window 3, stride 4; depth truncated at GS_DEPTH_TRUNC): every frame
+        tracked, one fast_nms launch a frame, every keyframe integrated,
+        ATE under ATE_MAX, the mean PSNR of each keyframe's view after its
+        integration at least GS_PSNR_MIN (the views at the session's end
+        reported), a save / load within GS_SAVE_TOL; the JAX package's
+        held-out configuration (96x128) at least GS_PSNR_MIN; ms per keyframe
+        integration, one rasterize's and one optimiser step's launches and
+        kernel ms, the tile-score pass against its byte bound, the peak
+        device memory; one full-size rasterize card against CPU;
+     e. ``main_map_dense_reconstruction --frames 20`` on the card: a
+        non-empty TSDF cloud that reloads.
+     A ``reconstruction`` JSON line gathers their numbers and the script's
+     wall time.
 It ends with a JSON line of kernel results, the card's name and power limit,
 and, last, {"ok": true, "device": {...}}.
 """
@@ -486,6 +518,40 @@ SEM_SCORES_TOL = 1e-5
 SEM_LEARNED_FRAMES = 20
 SEM_CLIP_LABELS = ("floor", "wall", "ceiling", "furniture", "object", "person", "vehicle",
                    "vegetation")
+
+
+# phase 19: 3D reconstruction from views and Gaussian-splatting dense
+# mapping, seeded random weights.  19a holds VGGT and Fast3R card against
+# CPU within RECON_TOL of each output's largest magnitude, on the
+# SCENE_VIEWS views of main_scene_from_views.  19b's floor on each view's
+# rotation against the ground truth: the JAX package's GEOMETRIC on the CPU
+# (x64 off, PRNGKey(3)) ends at 0.6988 deg at worst on these views; the
+# port's on the CPU over 48 generator seeds at 0.540-2.399 deg (the spread
+# of the float32 RANSAC's draws over the 5-pair chain: 1.86 deg); the floor
+# is their sum, rounded up.  19d runs phase 9's RGBD stream cut to GS_FRAMES
+# frames with the integrator at its defaults.  The JAX package's own floor
+# for a rendered view, GS_PSNR_MIN (tests/test_gaussian_splatting.py:96, a
+# held-out frame after 6 keyframes at 96x128), holds in that configuration
+# on the card, and in the session on the mean PSNR of each keyframe's view
+# right after its own integration (seeding and its steps); the views' PSNR
+# at the session's end is reported (13.1-18.1 dB, mean 15.1, on an H100
+# at 700 W: a keyframe's view is fitted only while it is among the
+# window's 3).  A save / load renders within GS_SAVE_TOL; one full-size
+# rasterize card against CPU within RECON_TOL, the tiles' selections
+# identical but at near-ties (scores or depths within GS_TIE_TOL of the
+# tile's largest)
+RECON_TOL = 1e-4
+SCENE_VIEWS = 6
+SCENE_ROT_MAX_DEG = 2.6
+GS_FRAMES = 20
+# the integrator's depth truncation for the session: past the stream's
+# depth range (4-80 m), since the PSNR counts every pixel (at phase 9's 40 m
+# the volume would hold 40-44 % of a frame's pixels, against 88 % with depth)
+GS_DEPTH_TRUNC = 100.0
+GS_PSNR_MIN = 16.0
+GS_SAVE_TOL = 1e-5
+GS_TIE_TOL = 1e-4
+DENSE_ENTRY_FRAMES = 20
 
 
 T_START = time.perf_counter()
@@ -3029,6 +3095,436 @@ def semantic_phase(dev, frames, cam, ds, voxels_per_frame=None):
     return out
 
 
+def recon_models_phase(dev, views):
+    """Phase 19a: VGGT and Fast3R at their default configurations on the
+    views of main_scene_from_views, card against CPU, and their times."""
+    import copy
+
+    import torch
+
+    from pyslam_tpu_torch.models import fast3r, vggt
+
+    out = {}
+    for name, build in (("vggt", lambda d: vggt.VGGTModel(device=d)),
+                        ("fast3r", lambda d: fast3r.Fast3RModel(device=d))):
+        t0 = time.perf_counter()
+        mc = build("cpu")
+        mg = copy.copy(mc)
+        mg.device, mg.net = torch.device(dev), copy.deepcopy(mc.net).to(dev)
+        c = mc.cfg
+        hc, hg = mc.infer_views(views), mg.infer_views(views)
+        errs = {k: float(np.abs(hg[k] - hc[k]).max() / max(float(np.abs(hc[k]).max()), 1e-30))
+                for k in hc}
+        finite = all(np.isfinite(v).all() for v in hg.values())
+        on_card = all(p.device.type == "cuda" for p in mg.net.parameters())
+        xb = torch.from_numpy(vggt.prep_views(views, c.img_hw)).to(dev)
+
+        def fwd(net=mg.net, xb=xb):
+            with torch.no_grad():
+                return net(xb)
+
+        ms = events_ms(fwd, n=3)
+        launches, kernel_ms = profile_call(fwd)
+        n = (c.img_hw[0] // c.patch) * (c.img_hw[1] // c.patch)
+        v = len(views)
+        if name == "vggt":
+            attn = vit_flops(n + 1, c.dim, c.depth_pairs, v) + vit_flops(v * (n + 1), c.dim,
+                                                                         c.depth_pairs)
+        else:
+            attn = vit_flops(n, c.enc_dim, c.enc_depth, v) + vit_flops(v * n, c.dec_dim,
+                                                                       c.dec_depth)
+        flops = layer_flops([mg.net], fwd) + attn
+        row = dict(rel_errs=errs, rel_err=max(errs.values()), finite=finite, on_card=on_card,
+                   forward_ms=ms, gflop=flops / 1e9, attention_gflop=attn / 1e9,
+                   fp32_peak_share=flops / (ms * 1e-3) / PEAK_FP32_FLOPS, launches=launches,
+                   kernel_ms=kernel_ms, trained=mg.trained, seconds=time.perf_counter() - t0)
+        out[name] = row
+        log(f"[recon] {name} ({v} views {c.img_hw[0]}x{c.img_hw[1]}): card against CPU within "
+            f"{row['rel_err']:.3g} of each output's largest magnitude ("
+            + ", ".join(f"{k} {e:.3g}" for k, e in errs.items())
+            + f"); forward {ms:.2f} ms (CUDA events) for {row['gflop']:.2f} GFLOP "
+            f"({row['attention_gflop']:.2f} in attention; {row['fp32_peak_share'] * 100:.1f}% of "
+            f"the float32 peak), {launches} launches and {kernel_ms:.2f} ms of kernel time "
+            f"(torch.profiler); trained {mg.trained}; {row['seconds']:.1f} s with the CPU run")
+        assert on_card and finite and row["rel_err"] <= RECON_TOL and not mg.trained, (name, row)
+        del mg, mc, xb
+        torch.cuda.empty_cache()
+    return out
+
+
+def rot_errors_deg(poses, gt):
+    """Each view's rotation against the ground truth's, both relative to
+    view 0 (degrees)."""
+    g0 = np.linalg.inv(gt[0])
+    out = []
+    for P, G in zip(poses, gt):
+        R, Rg = P[:3, :3], (g0 @ G)[:3, :3]
+        out.append(np.degrees(np.arccos(np.clip((np.trace(R.T @ Rg) - 1) / 2, -1.0, 1.0))))
+    return np.asarray(out)
+
+
+def scene_phase(dev):
+    """Phases 19b-c: main_scene_from_views GEOMETRIC on the card and on the
+    CPU, then every other SceneFromViewsType through the factory on the
+    card."""
+    import tempfile
+
+    import torch
+
+    from pyslam_tpu_torch import main_scene_from_views
+    from pyslam_tpu_torch.io.dataset_types import SensorType
+    from pyslam_tpu_torch.io.synthetic import SyntheticDataset
+    from pyslam_tpu_torch.ops.fast import fast_nms
+    from pyslam_tpu_torch.scene_from_views.scene_from_views import (SceneFromViewsType,
+                                                                    scene_from_views_factory)
+    from pyslam_tpu_torch.slam.camera import PinholeCamera
+
+    v = SCENE_VIEWS
+    ds = SyntheticDataset(num_frames=v * 3, sensor_type=SensorType.MONOCULAR, trajectory="line",
+                          step=0.5)
+    views = [ds.getImage(i * 3) for i in range(v)]
+    gt = np.stack([ds.poses[i * 3] for i in range(v)])
+    out = {}
+    with tempfile.TemporaryDirectory() as td:
+        path = os.path.join(td, "scene.npz")
+        args = ["--type", "geometric", "--views", str(v), "--save", path]
+        t0 = time.perf_counter()
+        fast_nms.launches = 0
+        res = main_scene_from_views.run(args)
+        torch.cuda.synchronize()
+        launches, secs = fast_nms.launches, time.perf_counter() - t0
+        with np.load(path) as z:
+            reloaded = (np.array_equal(z["poses"], res.poses)
+                        and np.array_equal(z["points"], res.points))
+        cpu = main_scene_from_views.run(args[:-1] + [os.path.join(td, "cpu.npz"),
+                                                     "--device", "cpu"])
+    rot = rot_errors_deg(res.poses, gt)
+    geo = dict(launches=launches, seconds=secs, matches=res.per_view_matches,
+               matches_cpu=cpu.per_view_matches, rot_err_deg=rot.tolist(),
+               points=len(res.points), reloaded=reloaded)
+    out["geometric"] = geo
+    log(f"[scene] main_scene_from_views --type geometric --views {v} on the card: "
+        f"{secs:.2f} s, fast_nms launches {launches}, matches {res.per_view_matches} (the CPU "
+        f"{cpu.per_view_matches}), rotation against the ground truth "
+        f"{', '.join(f'{e:.4f}' for e in rot)} deg (floor {SCENE_ROT_MAX_DEG}), "
+        f"{len(res.points)} points, the saved npz reloads: {reloaded}")
+    assert launches == v, launches
+    assert res.per_view_matches == cpu.per_view_matches, geo
+    assert min(res.per_view_matches) >= 30, geo
+    assert rot.max() <= SCENE_ROT_MAX_DEG, geo
+    assert len(res.points) > 0 and np.isfinite(res.points).all() and reloaded, geo
+    # 19c: the network backends (random weights: no floor on quality)
+    cam = PinholeCamera(ds.w, ds.h, ds.fx, ds.fy, ds.cx, ds.cy)
+    others = {}
+    for t in SceneFromViewsType:
+        if t == SceneFromViewsType.GEOMETRIC:
+            continue
+        t0 = time.perf_counter()
+        sv = scene_from_views_factory(t, camera=cam, device=dev)
+        r = sv.reconstruct(views)
+        torch.cuda.synchronize()
+        on_card = all(p.device.type == "cuda" for p in sv.model.net.parameters())
+        row = dict(seconds=time.perf_counter() - t0, points=len(r.points),
+                   finite=bool(np.isfinite(r.poses).all() and np.isfinite(r.points).all()),
+                   poses_shape=list(r.poses.shape), on_card=on_card)
+        others[t.value] = row
+        log(f"[scene] {t.value}: poses {row['poses_shape']}, {row['points']} points, finite "
+            f"{row['finite']}, {row['seconds']:.2f} s with the model's build (random weights)")
+        assert row["finite"] and row["poses_shape"] == [v, 4, 4] and on_card, (t, row)
+        assert row["points"] > 0, (t, row)
+        del sv, r
+        torch.cuda.empty_cache()
+    out["backends"] = others
+    return out
+
+
+def psnr(a, b):
+    return float(-10.0 * np.log10(max(float(np.mean((a - b) ** 2)), 1e-12)))
+
+
+def gs_phase(dev, frames, cam, ds):
+    """Phase 19d: the Gaussian-splatting session on the first GS_FRAMES
+    RGBD frames of phase 9, its renders, save / load, the rasterizer's and
+    an optimiser step's cost, and one full-size rasterize card against
+    CPU."""
+    import tempfile
+
+    import torch
+
+    from pyslam_tpu_torch.config_parameters import Parameters
+    from pyslam_tpu_torch.dense.gaussian_splatting_integrator import GaussianSplattingVolume
+    from pyslam_tpu_torch.dense.volumetric_integrator import volumetric_integrator_factory
+    from pyslam_tpu_torch.evaluation.metrics import eval_ate
+    from pyslam_tpu_torch.features.tracker import FeatureTrackerConfig
+    from pyslam_tpu_torch.io.dataset_types import SensorType
+    from pyslam_tpu_torch.ops import gaussian_splatting as gs
+    from pyslam_tpu_torch.ops.fast import fast_nms
+    from pyslam_tpu_torch.slam.slam import Slam
+
+    n = len(frames)
+    Parameters.kVolumetricIntegrationUseDepthEstimator = False
+    Parameters.kVolumetricIntegrationDepthTruncOutdoor = GS_DEPTH_TRUNC
+    integ = volumetric_integrator_factory("gaussian_splatting", camera=cam,
+                                          environment_type=type("E", (), {"name": "OUTDOOR"})(),
+                                          device=dev)
+    vol = integ.volume
+    assert isinstance(vol, GaussianSplattingVolume) and integ._depth_provider is None
+    assert (vol.capacity, vol.tile_k, vol.steps_per_kf, vol.window, vol.seed_stride) == \
+        (60000, 48, 30, 3, 4)
+    kf_ms = []
+    integrate = vol.integrate
+
+    def timed(*args, **kw):
+        if kw.get("phase", 0) != kw.get("phases", 1) - 1:
+            return integrate(*args, **kw)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        integrate(*args, **kw)
+        torch.cuda.synchronize()
+        kf_ms.append((time.perf_counter() - t1) * 1e3)
+
+    vol.integrate = timed
+    # each keyframe's view rendered after its seeding and after its steps
+    seeded, fitted = [], []
+    optimize = vol._optimize
+
+    def recorded(K):
+        Tcw, img_t, _ = vol._views[-1]
+        seeded.append(psnr(vol.render(Tcw, K)[0][..., 0], img_t[..., 0]))
+        loss = optimize(K)
+        fitted.append(psnr(vol.render(Tcw, K)[0][..., 0], img_t[..., 0]))
+        return loss
+
+    vol._optimize = recorded
+    slam = Slam(cam, FeatureTrackerConfig(num_features=N_FEATURES, num_levels=N_LEVELS),
+                sensor_type=SensorType.RGBD, device=dev)
+    slam.set_volumetric_integrator(integ)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fast_nms.launches = 0
+    t0 = time.perf_counter()
+    lats = []
+    for i, (img, depth, ts) in enumerate(frames):
+        nxt = None
+        if i + 1 < n:
+            nxt = {"img": frames[i + 1][0], "frame_id": i + 1, "timestamp": frames[i + 1][2],
+                   "depth": frames[i + 1][1]}
+        t1 = time.perf_counter()
+        slam.track(img, depth=depth, frame_id=i, timestamp=ts, next_input=nxt)
+        lats.append(time.perf_counter() - t1)
+    slam.finish()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = fast_nms.launches
+    peak_mb = torch.cuda.max_memory_allocated() / 2**20
+    n_tracked = len(slam.tracking.history.timestamps)
+    ts_est, poses = slam.get_final_trajectory()
+    gt_t = np.asarray([ds.getTimestamp(i) for i in range(n)])
+    ate = float(eval_ate(ts_est, poses[:, :3, 3], gt_t, ds.poses[:n, :3, 3], align=True,
+                         with_scale=False).rmse)
+    K = cam.K
+    rh, rw = vol.render_hw
+    psnrs = []
+    for kid, snap in integ.snapshots.items():
+        color = vol.render(np.linalg.inv(snap.Twc), K)[0][..., 0]
+        target = np.asarray(snap.intensity, np.float32)[:rh, :rw] / 255.0
+        psnrs.append(psnr(color, target))
+    out = dict(n_tracked=n_tracked, launches=launches, ate=ate, keyframes=slam.map.num_keyframes(),
+               snapshots=len(integ.snapshots), integrated=vol.num_integrated,
+               gaussians=vol.num_used, kf_integrate_ms=kf_ms, peak_mb=peak_mb,
+               psnr_db=psnrs, mean_psnr_db=float(np.mean(psnrs)) if psnrs else None,
+               seeded_psnr_db=seeded, fitted_psnr_db=fitted,
+               fps=n / wall, p50_ms=float(np.percentile(np.asarray(lats) * 1e3, 50)))
+    log(f"[gs] RGBD session with the Gaussian-splatting integrator (capacity {vol.capacity}, "
+        f"tile_k {vol.tile_k}, {vol.steps_per_kf} steps, window {vol.window}, stride "
+        f"{vol.seed_stride}, raster {rh}x{rw}): {n_tracked}/{n} tracked, fast_nms launches "
+        f"{launches}, {out['keyframes']} keyframes, {out['snapshots']} handed over, "
+        f"{out['integrated']} integrated, {vol.num_used} gaussians, ATE {ate:.4f} m, "
+        f"{out['fps']:.2f} FPS, p50 {out['p50_ms']:.1f} ms; a keyframe's integration "
+        f"(seeding + {vol.steps_per_kf} steps) "
+        + ", ".join(f"{t:.0f}" for t in kf_ms) + " ms (two renders included); PSNR at the "
+        "keyframes' poses after their seeding " + ", ".join(f"{p:.2f}" for p in seeded)
+        + " dB, after their steps " + ", ".join(f"{p:.2f}" for p in fitted)
+        + " dB, at the session's end " + ", ".join(f"{p:.2f}" for p in psnrs)
+        + f" dB (means {np.mean(seeded):.2f}, {np.mean(fitted):.2f}, "
+        f"{out['mean_psnr_db']:.2f}); peak device memory {peak_mb:.1f} MiB "
+        f"(torch.cuda.max_memory_allocated)")
+    assert n_tracked == n and launches == n, out
+    assert out["snapshots"] >= 1 and out["integrated"] == out["snapshots"], out
+    assert np.isfinite(ate) and ate < ATE_MAX, out
+    # each keyframe's view once its steps ran: the map explains what it
+    # has just seen; the end of the session is reported beside it (a view
+    # drifts once it leaves the window)
+    assert np.mean(fitted) >= GS_PSNR_MIN, out
+    assert vol.device.type == "cuda"
+    # save / load
+    snap = next(iter(integ.snapshots.values()))
+    Tcw = np.linalg.inv(snap.Twc)
+    color = vol.render(Tcw, K)[0]
+    with tempfile.TemporaryDirectory() as td:
+        path = os.path.join(td, "gs.npz")
+        integ.save(path)
+        back = GaussianSplattingVolume(capacity=vol.capacity, tile_k=vol.tile_k, device=dev)
+        back.load(path)
+    out["save_load_max_abs"] = float(np.abs(back.render(Tcw, K)[0] - color).max())
+    assert out["save_load_max_abs"] <= GS_SAVE_TOL and back.num_used == vol.num_used, out
+    del back
+    # the cost of one rasterize, of one optimiser step over the window, and
+    # the tile-score pass against its byte bound
+    g = vol.g
+    Tcw_t = torch.as_tensor(Tcw, dtype=torch.float32, device=dev)
+    K_t = torch.as_tensor(K, dtype=torch.float32, device=dev)
+
+    def raster():
+        with torch.no_grad():
+            return gs.rasterize(g, Tcw_t, K_t, rh, rw, vol.tile_k)
+
+    r_ms = events_ms(raster, n=5)
+    r_launches, r_kernel_ms = profile_call(raster)
+    views = list(vol._views)
+    Tcws, targets, depths = (torch.as_tensor(np.stack([w[i] for w in views]), device=dev)
+                             for i in range(3))
+    g_copy = gs.Gaussians(*[x.detach().clone() for x in g])
+
+    def step():
+        gs.optimize_gaussians(g_copy, None, Tcws, K_t, targets, depths, rh, rw, vol.tile_k, 1)
+
+    s_ms = events_ms(step, n=3)
+    s_launches, s_kernel_ms = profile_call(step)
+    mean2d, _, _, radius, _, ok = gs.project_gaussians(g, Tcw_t, K_t)
+    cyx = gs.tile_centers(rh // gs.TILE, rw // gs.TILE, dev)
+    n_g, n_t = mean2d.shape[0], cyx.shape[0]
+
+    def scores():
+        with torch.no_grad():
+            return gs.tile_scores(cyx, mean2d, radius, ok)
+
+    sc_ms = events_ms(scores, n=5)
+    # each input read once (centres, 2D means, radii, validity), the (T, N)
+    # score matrix written once; per element 2 subtracts, 2 multiplies, an
+    # add, a sqrt, 2 subtracts and a select
+    sc_bound = bound(n_t * 8 + n_g * (8 + 4 + 1) + n_t * n_g * 4, 9 * n_t * n_g)
+    out.update(rasterize_ms=r_ms, rasterize_launches=r_launches,
+               rasterize_kernel_ms=r_kernel_ms, step_ms=s_ms, step_launches=s_launches,
+               step_kernel_ms=s_kernel_ms, step_views=len(views), tile_score_ms=sc_ms,
+               tile_score_bound_ms=sc_bound["bound_ms"], tile_score_bound_by=sc_bound["bound_by"],
+               tiles=n_t, capacity=n_g)
+    log(f"[gs] one rasterize ({n_t} tiles x {n_g} gaussians, k {vol.tile_k}): {r_ms:.2f} ms "
+        f"(CUDA events), {r_launches} launches and {r_kernel_ms:.2f} ms of kernel time "
+        f"(torch.profiler); one optimiser step over {len(views)} views: {s_ms:.2f} ms, "
+        f"{s_launches} launches, {s_kernel_ms:.2f} ms of kernel time; the tile-score pass "
+        f"{sc_ms:.3f} ms against its bound {sc_bound['bound_ms']:.3f} ms "
+        f"({sc_bound['bound_by']}: {sc_bound['bytes']} B), "
+        f"{sc_bound['bound_ms'] / sc_ms * 100:.1f}% of it")
+    del g_copy, Tcws, targets, depths, mean2d, radius, ok
+    torch.cuda.empty_cache()
+    # one full-size rasterize of the final gaussians, card against CPU
+    g_cpu = gs.Gaussians(*[x.detach().cpu() for x in g])
+    with torch.no_grad():
+        *og, idx_g, _ = gs.rasterize(g, Tcw_t, K_t, rh, rw, vol.tile_k, return_indices=True)
+        *oc, idx_c, _ = gs.rasterize(g_cpu, Tcw_t.cpu(), K_t.cpu(), rh, rw, vol.tile_k,
+                                        return_indices=True)
+        errs = [float((a.detach().cpu() - b).abs().max() / max(float(b.abs().max()), 1e-30))
+                for a, b in zip(og, oc)]
+        # selections that differ: at near-ties of the tile score (the set)
+        # or of the depth (the order), on the CPU's numbers
+        m2, _, dep, rad, _, okc = gs.project_gaussians(g_cpu, Tcw_t.cpu(), K_t.cpu())
+        cyx_c = gs.tile_centers(rh // gs.TILE, rw // gs.TILE, "cpu")
+        idx_g = idx_g.cpu()
+        diff_rows = torch.nonzero((idx_g != idx_c).any(1))[:, 0].tolist()
+        far = 0
+        for t in diff_rows:
+            s = gs.tile_scores(cyx_c[t:t + 1], m2, rad, okc)[0]
+            sel = s[idx_c[t]]
+            kth, scale = float(sel.min()), float(sel.abs().max())
+            a, b = set(idx_g[t].tolist()), set(idx_c[t].tolist())
+            far += sum(abs(float(s[j]) - kth) > GS_TIE_TOL * scale for j in a ^ b)
+            if a == b:
+                dg, dc = dep[idx_g[t]], dep[idx_c[t]]
+                far += int(((dg - dc).abs() > GS_TIE_TOL * float(dc.abs().max())).sum())
+    out.update(card_cpu_rel_errs=errs, rows_apart=len(diff_rows), apart_not_at_ties=far)
+    log(f"[gs] full-size rasterize card against CPU: colour, alpha, depth within "
+        + ", ".join(f"{e:.3g}" for e in errs) + f" of their largest; {len(diff_rows)} of {n_t} "
+        f"tiles select otherwise, {far} selections apart away from a near-tie")
+    assert max(errs) <= RECON_TOL and far == 0, out
+    del g_cpu, og, oc, integ, vol, slam
+    torch.cuda.empty_cache()
+    return out
+
+
+def gs_heldout(dev):
+    """Phase 19d: the configuration of the JAX package's own floor
+    (tests/test_gaussian_splatting.py::test_gs_integrator_improves_rendering):
+    6 keyframes of the 96x128 RGBD line at their ground-truth poses into a
+    volume of 20000 gaussians (25 steps, tile_k 32, stride 3), then the
+    held-out frame 6 rendered against its image."""
+    import torch
+
+    from pyslam_tpu_torch.dense.gaussian_splatting_integrator import GaussianSplattingVolume
+    from pyslam_tpu_torch.io.dataset_types import SensorType
+    from pyslam_tpu_torch.io.synthetic import SyntheticDataset
+
+    t0 = time.perf_counter()
+    ds = SyntheticDataset(num_frames=8, h=96, w=128, sensor_type=SensorType.RGBD,
+                          trajectory="line", step=0.15)
+    K = np.array([[ds.fx, 0, ds.cx], [0, ds.fy, ds.cy], [0, 0, 1]], np.float32)
+    vol = GaussianSplattingVolume(capacity=20_000, steps_per_kf=25, tile_k=32, seed_stride=3,
+                                  device=dev)
+    for i in range(6):
+        vol.integrate(ds.getDepth(i), ds.getImage(i), ds.poses[i], K)
+    color, _, _ = vol.render(np.linalg.inv(ds.poses[6]), K)
+    rh, rw = vol.render_hw
+    target = np.asarray(ds.getImage(6), np.float32)[:rh, :rw] / 255.0
+    out = dict(psnr_db=psnr(color[..., 0], target), gaussians=vol.num_used,
+               seconds=time.perf_counter() - t0)
+    log(f"[gs] the JAX package's held-out configuration (96x128, 6 keyframes, 20000 "
+        f"gaussians, 25 steps, tile_k 32, stride 3): frame 6 at {out['psnr_db']:.2f} dB "
+        f"(floor {GS_PSNR_MIN}), {vol.num_used} gaussians, {out['seconds']:.1f} s")
+    assert out["psnr_db"] > GS_PSNR_MIN and vol.device.type == "cuda", out
+    del vol
+    torch.cuda.empty_cache()
+    return out
+
+
+def dense_entry_phase(dev):
+    """Phase 19e: main_map_dense_reconstruction on the card."""
+    import tempfile
+
+    from pyslam_tpu_torch import main_map_dense_reconstruction
+    from pyslam_tpu_torch.config_parameters import Parameters
+
+    Parameters.kVolumetricIntegrationUseDepthEstimator = False
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as td:
+        path = os.path.join(td, "cloud.npz")
+        pts, cols = main_map_dense_reconstruction.run(["--frames", str(DENSE_ENTRY_FRAMES),
+                                                       "--save_cloud", path])
+        with np.load(path) as z:
+            reloaded = np.array_equal(z["points"], pts)
+    out = dict(points=len(pts), seconds=time.perf_counter() - t0, reloaded=reloaded)
+    log(f"[dense-entry] main_map_dense_reconstruction --frames {DENSE_ENTRY_FRAMES} on the card: "
+        f"{len(pts)} cloud points in {out['seconds']:.1f} s, the saved npz reloads: {reloaded}")
+    assert len(pts) > 0 and np.isfinite(pts).all() and reloaded, out
+    return out
+
+
+def reconstruction_phase(dev, rgbd_frames, cam_rgbd, ds_rgbd):
+    """Phase 19: 3D reconstruction from views and Gaussian-splatting dense
+    mapping."""
+    from pyslam_tpu_torch.io.dataset_types import SensorType
+    from pyslam_tpu_torch.io.synthetic import SyntheticDataset
+
+    ds = SyntheticDataset(num_frames=SCENE_VIEWS * 3, sensor_type=SensorType.MONOCULAR,
+                          trajectory="line", step=0.5)
+    views = [ds.getImage(i * 3) for i in range(SCENE_VIEWS)]
+    out = {"models": recon_models_phase(dev, views)}
+    out.update(scene_phase(dev))
+    out["gs"] = gs_phase(dev, rgbd_frames[:GS_FRAMES], cam_rgbd, ds_rgbd)
+    out["gs_heldout"] = gs_heldout(dev)
+    out["dense_entry"] = dense_entry_phase(dev)
+    return out
+
+
 def write_kitti_sequence(root, frames, ds):
     """Phase 7's stereo frames as a KITTI odometry sequence 00 under
     ``root`` (uint8 PNGs as bench.py's frame cache stores them, times.txt,
@@ -3585,12 +4081,17 @@ def main():
     # ---------------------------------------------------------------- 18
     PHASE_START.append((18, time.perf_counter()))
     semantic = semantic_phase(dev, frames, cam, ds, voxels_per_frame)
-    semantic["wall_s"] = time.perf_counter() - T_START
-    ends = [t for _, t in PHASE_START[1:]] + [time.perf_counter()]
-    semantic["phase_s"] = {ph: round(end - t, 1) for (ph, t), end in zip(PHASE_START, ends)}
-    log(f"[time] the script so far {semantic['wall_s']:.1f} s; seconds a phase "
-        f"{json.dumps(semantic['phase_s'])}")
     print(json.dumps({"semantic": semantic}, default=float), flush=True)
+
+    # ---------------------------------------------------------------- 19
+    PHASE_START.append((19, time.perf_counter()))
+    recon = reconstruction_phase(dev, rgbd_frames, cam_rgbd, ds_rgbd)
+    recon["wall_s"] = time.perf_counter() - T_START
+    ends = [t for _, t in PHASE_START[1:]] + [time.perf_counter()]
+    recon["phase_s"] = {ph: round(end - t, 1) for (ph, t), end in zip(PHASE_START, ends)}
+    log(f"[time] the script so far {recon['wall_s']:.1f} s; seconds a phase "
+        f"{json.dumps(recon['phase_s'])}")
+    print(json.dumps({"reconstruction": recon}, default=float), flush=True)
 
     print(json.dumps({"kernels": [{
         "name": "fast_nms", "route": "cuda",
@@ -3611,6 +4112,8 @@ def main():
             depth["learned_upgrade"]["depth_anything_v2"]["launches"],
         "launches_depth_mast3r_stage": depth["learned_upgrade"]["mast3r"]["launches"],
         "launches_semantic_stage": semantic["session"]["launches"],
+        "launches_scene_from_views": recon["geometric"]["launches"],
+        "launches_gs_stage": recon["gs"]["launches"],
         "mono_frame": one["b1_pyramid"], "vo_rgbd_level_th15": one["vo_level_th15"],
         "max_abs_err": max_err, "ms": kern_ms, "plain_ms": plain_ms,
         "bound_ms": work["bound_ms"], "bound_by": work["bound_by"], "library_ms": None,

@@ -14,8 +14,10 @@ given no right image) gives a host depth, kept with the snapshot, whose
 first TSDF phase runs in the same call.  The two semantic types build a
 ``SemanticTSDFVolume`` (``dense/semantic_volume.py``), which the keyframe
 path integrates as a TSDF, as the reference's does: its class scores move
-only through ``integrate_semantic``.  The Gaussian-splatting integrator
-is not ported (ROADMAP.md section 1, item 4.1).
+only through ``integrate_semantic``.  GAUSSIAN_SPLATTING builds a
+``GaussianSplattingVolume`` (``dense/gaussian_splatting_integrator.py``),
+which does a keyframe's whole work at its last phase (a departure from the
+reference, whose volume takes no phase; ROADMAP.md section 3).
 """
 
 from __future__ import annotations
@@ -27,6 +29,7 @@ import numpy as np
 import torch
 
 from pyslam_tpu_torch.config_parameters import Parameters
+from pyslam_tpu_torch.dense.gaussian_splatting_integrator import GaussianSplattingVolume
 from pyslam_tpu_torch.dense.semantic_volume import SemanticTSDFVolume
 from pyslam_tpu_torch.dense.tsdf import TSDFVolume
 from pyslam_tpu_torch.utils.device import same_device
@@ -213,15 +216,14 @@ def volumetric_integrator_factory(integrator_type=VolumetricIntegratorType.TSDF,
                                   **kw) -> VolumetricIntegrator:
     if isinstance(integrator_type, str):
         integrator_type = VolumetricIntegratorType(integrator_type.lower())
-    if integrator_type == VolumetricIntegratorType.GAUSSIAN_SPLATTING:
-        raise NotImplementedError(f"integrator {integrator_type.name} is not ported yet "
-                                  f"(ROADMAP.md section 1 item 4.1)")
     depth_trunc = (Parameters.kVolumetricIntegrationDepthTruncOutdoor
                    if getattr(environment_type, "name", "") == "OUTDOOR"
                    else Parameters.kVolumetricIntegrationDepthTruncIndoor)
     if integrator_type in (VolumetricIntegratorType.VOXEL_SEMANTIC_GRID,
                            VolumetricIntegratorType.VOXEL_SEMANTIC_PROBABILISTIC_GRID):
         vol = SemanticTSDFVolume(depth_trunc=depth_trunc, device=device, **kw)
+    elif integrator_type == VolumetricIntegratorType.GAUSSIAN_SPLATTING:
+        vol = GaussianSplattingVolume(depth_trunc=depth_trunc, device=device, **kw)
     else:
         vol = TSDFVolume(depth_trunc=depth_trunc, device=device, **kw)
     integ = VolumetricIntegrator(camera, integrator_type, vol, device=device)

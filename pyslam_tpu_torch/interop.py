@@ -21,7 +21,8 @@ dense matchers' and VPR networks' ``loftr_state_dict``,
 ``megaloc_state_dict`` and ``alexnet_state_dict``, and the depth
 models' ``dpt_lite_state_dict``, ``depth_anything_v2_state_dict``,
 ``da3_state_dict``, ``depth_pro_state_dict``, ``raft_stereo_state_dict``,
-``crestereo_state_dict`` and ``mvdust3r_state_dict``, and the semantic
+``crestereo_state_dict`` and ``mvdust3r_state_dict``, the 3D
+reconstruction models' ``vggt_state_dict`` and ``fast3r_state_dict``, and the semantic
 models' ``deeplabv3_state_dict``, ``segformer_state_dict``,
 ``clip_state_dict``, ``yolo_seg_state_dict`` and ``detr_state_dict`` take the JAX
 package's flat parameters (the ``params/...`` keys of its ``.npz``
@@ -363,6 +364,10 @@ depth_pro_state_dict = same_names_state_dict
 raft_stereo_state_dict = same_names_state_dict
 crestereo_state_dict = same_names_state_dict
 mvdust3r_state_dict = same_names_state_dict
+# the 3D reconstruction models: ``patch_embed``, ``frame_i`` / ``global_i``
+# (VGGT) and ``enc_i`` / ``dec_i`` (Fast3R) keep their flax names
+vggt_state_dict = same_names_state_dict
+fast3r_state_dict = same_names_state_dict
 
 
 # ---------------------------------------------------------- semantic models

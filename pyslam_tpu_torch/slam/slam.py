@@ -350,7 +350,7 @@ class Slam:
         if self.loop_closing is not None:
             parts.append(("vocabulary", self.loop_closing.detector.vocabulary.device))
         if self.volumetric_integrator is not None:
-            parts.append(("volume", self.volumetric_integrator.volume.table.tsdf.device))
+            parts.append(("volume", self.volumetric_integrator.volume.device))
         bad = [(name, str(dev)) for name, dev in parts if not same_device(dev, self.device)]
         if bad:
             raise RuntimeError(f"loaded state off the session's device {self.device}: {bad[:5]}")

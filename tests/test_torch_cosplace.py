@@ -36,6 +36,7 @@ from pyslam_tpu_torch.models.cosplace import CosPlaceExtractor, GeoLocalizationN
 from pyslam_tpu_torch.models.resnet import ResNet
 from pyslam_tpu_torch.models.torch_convert import resnet_from_torch
 from tests.torch_parity import np_
+from tests.torch_parity import shared_jax_compile_cache  # noqa: F401  (module fixture)
 
 TOL = 1e-4
 HW = (96, 128)   # the bundled net's training view

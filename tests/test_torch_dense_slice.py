@@ -32,6 +32,7 @@ from pyslam_tpu_torch.io.dataset_types import SensorType
 from pyslam_tpu_torch.io.synthetic import SyntheticDataset
 from pyslam_tpu_torch.slam.camera import PinholeCamera
 from pyslam_tpu_torch.slam.slam import Slam
+from tests.torch_parity import shared_jax_compile_cache  # noqa: F401  (module fixture)
 
 FIELDS = ("keys", "occupied", "tsdf", "weight", "color")
 _FLAGS = ("kVolumetricIntegrationUseDepthEstimator", "kVolumetricIntegrationDepthEstimatorType")
@@ -131,9 +132,13 @@ def test_integrator_refuses_another_device():
     vol = TV.TSDFVolume(capacity=1 << 8, device="cpu")
     with pytest.raises(ValueError):
         TV.VolumetricIntegrator(cam, volume=vol, device="meta")
-    with pytest.raises(NotImplementedError, match="item 4.1"):
-        TV.volumetric_integrator_factory("gaussian_splatting", camera=cam, device="cpu")
+    from pyslam_tpu_torch.dense.gaussian_splatting_integrator import GaussianSplattingVolume
     from pyslam_tpu_torch.dense.semantic_volume import SemanticTSDFVolume
+
+    integ = TV.volumetric_integrator_factory("gaussian_splatting", camera=cam, device="cpu",
+                                             capacity=64)
+    assert isinstance(integ.volume, GaussianSplattingVolume)
+    assert integ.volume.device.type == "cpu" and integ.volume.g.means.shape == (64, 3)
 
     for kind in ("voxel_semantic_grid", "voxel_semantic_probabilistic_grid"):
         integ = TV.volumetric_integrator_factory(kind, camera=cam, device="cpu",

@@ -12,6 +12,12 @@ back-projected points within ``TOL`` where valid.  The factory builds every
 ``DepthEstimatorType`` as the reference does; RAFT-Stereo and CREStereo
 without a checkpoint are routed to SGM, with a flax ``.npz`` written by
 the JAX package's ``save_variables_npz`` both packages load it and agree.
+
+Each JAX model is built once for the module (``jax_models``): the JAX
+factory runs on every call, its model classes patched to hand back the
+model an earlier call built with the same arguments (the same
+``PRNGKey(0)`` weights, as a fresh build would make), and each stereo
+network's flax ``.npz`` is written once.
 """
 
 import jax
@@ -22,7 +28,9 @@ import pytest
 from pyslam_tpu.depth_estimation import depth_estimator as JD
 from pyslam_tpu.models import crestereo as jcre
 from pyslam_tpu.models import depth_anything_v2 as jdav2
+from pyslam_tpu.models import depth_anything as jdpt
 from pyslam_tpu.models import depth_anything_v3 as jda3
+from pyslam_tpu.models import depth_pro as jpro
 from pyslam_tpu.models import mast3r as jmast3r
 from pyslam_tpu.models import mvdust3r as jmv
 from pyslam_tpu.models import raft_stereo as jraft
@@ -35,6 +43,7 @@ from pyslam_tpu_torch.slam.camera import PinholeCamera
 from tests.test_torch_depth_models import (CRE_TINY, DA3_SMALL, DAV2_TINY, MV_SMALL, PRO_SMALL,
                                            RAFT_TINY)
 from tests.torch_parity import compiled_flax_init, flat_variables, rng
+from tests.torch_parity import shared_jax_compile_cache  # noqa: F401  (module fixture)
 
 TOL = 1e-4
 MASK_SAME = 0.999
@@ -43,8 +52,20 @@ M_TINY = dict(img_hw=(64, 64), patch=16, enc_dim=32, enc_depth=2, enc_heads=2, d
 CAM = dict(width=96, height=72, fx=60.0, fy=60.0, cx=48.0, cy=36.0, bf=6.0)
 
 
+# the JAX model classes the estimators build: (module, class name)
+JAX_MODELS = ((jdav2, "DepthAnythingV2"), (jdpt, "DepthAnythingInference"),
+              (jda3, "DepthAnything3"), (jpro, "DepthPro"), (jmv, "MVDust3rModel"),
+              (jmast3r, "Mast3rModel"), (jraft, "RaftStereo"), (jcre, "CREStereo"))
+
+
+@pytest.fixture(scope="module")
+def jax_models():
+    """The JAX models built so far in this module, by class and arguments."""
+    return {}
+
+
 @pytest.fixture
-def small(monkeypatch):
+def small(monkeypatch, jax_models):
     """Both packages' default model configurations set to the small ones."""
     for jmod, tmod, name, kw in (
             (jdav2, depth_anything_v2, "DAv2Config", DAV2_TINY),
@@ -56,8 +77,16 @@ def small(monkeypatch):
         for mod in (jmod, tmod):
             cls = getattr(mod, name)
             monkeypatch.setattr(mod, name, lambda cls=cls, kw=kw, **over: cls(**{**kw, **over}))
-    from pyslam_tpu.models import depth_pro as jpro
+    for mod, name in JAX_MODELS:
+        cls = getattr(mod, name)
 
+        def once(*args, cls=cls, **kw):
+            key = (cls.__name__, repr(args), repr(sorted(kw.items())))
+            if key not in jax_models:
+                jax_models[key] = cls(*args, **kw)
+            return jax_models[key]
+
+        monkeypatch.setattr(mod, name, once)
     return {"cfg_jax": jpro.DepthProConfig(**PRO_SMALL),
             "cfg_port": depth_pro.DepthProConfig(**PRO_SMALL)}
 
@@ -152,20 +181,32 @@ def test_mast3r(small, stereo):
     _assert_same_depth(*_infer_both(ref, got, left, right if stereo else None))
 
 
+@pytest.fixture(scope="module")
+def flax_npz(tmp_path_factory):
+    """A flax ``.npz`` of each stereo network's own random weights
+    (``PRNGKey(7)``) at the small size, written by the JAX package's
+    ``save_variables_npz``."""
+    from pyslam_tpu.models.torch_convert import save_variables_npz
+
+    out = {}
+    for net_name, net, cfg in (("raft_stereo", jraft.RaftStereoNet,
+                                jraft.RaftStereoConfig(**RAFT_TINY)),
+                               ("crestereo", jcre.CREStereoNet, jcre.CREStereoConfig(**CRE_TINY))):
+        with jax.enable_x64(False), compiled_flax_init():
+            params = net(cfg).init(jax.random.PRNGKey(7), jnp.zeros((48, 64)),
+                                   jnp.zeros((48, 64)))
+        out[net_name] = str(tmp_path_factory.mktemp("npz") / f"{net_name}.npz")
+        save_variables_npz(out[net_name], params)
+    return out
+
+
 @pytest.mark.parametrize("name,cls", [("raft_stereo", "DepthEstimatorRaft"),
                                       ("crestereo", "DepthEstimatorCREStereo"),
                                       ("crestereo_megengine", "DepthEstimatorCREStereo")])
-def test_stereo_networks_with_a_flax_npz(small, tmp_path, name, cls):
+def test_stereo_networks_with_a_flax_npz(small, flax_npz, name, cls):
     """A flax ``.npz`` of the JAX package's own random weights, written by
     its ``save_variables_npz``, loads into both packages' estimators."""
-    from pyslam_tpu.models.torch_convert import save_variables_npz
-
-    with jax.enable_x64(False), compiled_flax_init():
-        net = (jraft.RaftStereoNet(jraft.RaftStereoConfig()) if name == "raft_stereo"
-               else jcre.CREStereoNet(jcre.CREStereoConfig()))
-        params = net.init(jax.random.PRNGKey(7), jnp.zeros((48, 64)), jnp.zeros((48, 64)))
-    ckpt = str(tmp_path / f"{name}.npz")
-    save_variables_npz(ckpt, params)
+    ckpt = flax_npz["raft_stereo" if name == "raft_stereo" else "crestereo"]
     # the reference's estimator fixes its CREStereo graph at 240 x 320
     cams = (JaxCamera(320, 240, 200.0, 200.0, 160.0, 120.0, bf=20.0),
             PinholeCamera(320, 240, 200.0, 200.0, 160.0, 120.0, bf=20.0))

@@ -29,6 +29,7 @@ from pyslam_tpu.models import mast3r as jmast3r
 from pyslam_tpu_torch import interop
 from pyslam_tpu_torch.models import dust3r, mast3r
 from tests.torch_parity import compiled_flax_init, flat_variables, rel_err, rng, t
+from tests.torch_parity import shared_jax_compile_cache  # noqa: F401  (module fixture)
 
 TOL = 1e-4
 D_TINY = dict(img_hw=(32, 48), patch=8, enc_dim=32, enc_depth=2, enc_heads=2,
@@ -174,8 +175,9 @@ def test_dust3r_from_torch_file(dust, tmp_path):
     torch.save({"model": sd}, path)
     loaded = dust3r.Dust3rModel(dust3r.Dust3rConfig(**D_TINY), checkpoint=path, device="cpu")
     assert loaded.trained
-    with jax.enable_x64(False):
+    with jax.enable_x64(False), compiled_flax_init():
         other = jdust3r.Dust3rModel(jdust3r.Dust3rConfig(**D_TINY))
+    with jax.enable_x64(False):
         other.load_checkpoint(path)
         a, b = _images(6, (32, 48))
         want = other.infer_pair(a, b)

@@ -9,8 +9,9 @@ tests/test_slam_e2e.py on the KITTI sequence, and save -> load ->
 relocalise (tests/test_map_serialization.py's
 test_save_load_system_state_and_extend, which is slow in the JAX
 package's suite).  The refusals name the ROADMAP.md item each waits on.
-``main_feature_matching`` prints the JAX package's lines on the synthetic
-pair."""
+``main_feature_matching`` (tests/test_torch_entry_points_matching.py)
+prints the JAX package's lines on the synthetic pair; the synthetic-stream
+sessions are in tests/test_torch_entry_points_synthetic.py."""
 
 import json
 import os
@@ -156,39 +157,6 @@ def test_main_slam_load_state(kitti, tmp_path):
     assert len(read_tum_trajectory(traj)) >= N_KITTI - 2
 
 
-def test_main_slam_synthetic(tmp_path):
-    """The synthetic stream (no --config): every frame tracked, a TUM
-    trajectory that reads back, the state and the metrics file."""
-    traj, state = str(tmp_path / "traj.txt"), str(tmp_path / "state")
-    assert main_slam.main(["--device", "cpu", "--frames", "10", "--save_trajectory", traj,
-                           "--save_state", state, "--loop_detector", "DBOW3_INDEPENDENT"]) == 0
-    metrics = json.load(open(f"{state}/other_metrics_info.txt"))
-    gt = read_tum_trajectory(traj)
-    assert len(gt) == metrics["num_tracked"] == 10 and metrics["num_lost"] == 0
-    assert np.isfinite(metrics["ate_rmse"]) and np.isfinite(gt.Twc).all()
-    assert os.path.exists(f"{state}/map.json")
-
-
-def test_main_slam_semantics(tmp_path):
-    """``--semantics`` (it was refused before the semantic slice): the
-    intensity-band mapper labels the keyframes and their points."""
-    state = str(tmp_path / "state")
-    assert main_slam.main(["--device", "cpu", "--frames", "8", "--semantics",
-                           "--no_loop_closing", "--save_state", state]) == 0
-    metrics = json.load(open(f"{state}/other_metrics_info.txt"))
-    assert metrics["num_tracked"] == 8 and metrics["num_lost"] == 0
-    assert 0 < metrics["semantic_keyframes"] <= metrics["num_keyframes"]
-    assert metrics["semantic_points"] > 0
-
-
-def test_main_slam_profile_writes_a_trace(tmp_path):
-    logdir = str(tmp_path / "trace")
-    assert main_slam.main(["--device", "cpu", "--frames", "2", "--no_loop_closing",
-                           "--profile", logdir]) == 0
-    trace = json.load(open(os.path.join(logdir, "trace.json")))
-    assert trace["traceEvents"]
-
-
 def test_main_vo(kitti, tmp_path):
     """The monocular VO on the synthetic arc and on the sequence's left
     images (ground-truth scale from poses/00.txt)."""
@@ -259,72 +227,4 @@ def test_entry_points_default_to_the_card(entry, capsys):
         pytest.skip("a card is present: the default device runs")
     with pytest.raises(SystemExit) as e:
         entry.main(["--frames", "2"] if entry is not main_vo else ["--num_frames", "2"])
-    assert e.value.code == 2 and "no CUDA device" in capsys.readouterr().err
-
-
-def _printed(capsys, run):
-    capsys.readouterr()
-    assert run() == 0
-    return [line.strip() for line in capsys.readouterr().out.splitlines() if line.strip()]
-
-
-def test_main_feature_matching(capsys, tmp_path):
-    """``main_feature_matching`` on the synthetic frames 0 and 2 (ORB2, 1000
-    features, 4 levels) prints what the JAX package's prints: the same
-    keypoint counts, the match count within 2 % and the median displacement
-    within 0.5 px (measured 232 against 234 matches, 0.19 px: the two
-    packages' ORB2 keypoints part at near-ties of the 1000-slot cut, and
-    the port's matcher on the JAX package's features makes its 234); on
-    two PNG files with a preset (AKAZE) it matches them."""
-    import jax
-
-    import main_feature_matching as ref
-    from pyslam_tpu_torch import main_feature_matching
-
-    with jax.enable_x64(False):
-        want = _printed(capsys, lambda: _ref_main(ref, []))
-    got = _printed(capsys, lambda: main_feature_matching.main(["--device", "cpu"]))
-    assert got[0] == want[0] and got[1].startswith("matches: ") and len(got) == len(want) == 3
-    n, n_ref = int(got[1].split()[1]), int(want[1].split()[1])
-    assert n_ref > 50 and abs(n - n_ref) <= 0.02 * n_ref, (got, want)
-
-    def median(line):
-        return np.array(line.split("[")[1].rstrip("]").split(), float)
-
-    assert np.abs(median(got[2]) - median(want[2])).max() <= 0.5, (got, want)
-    ds = SyntheticDataset(num_frames=3, sensor_type=SensorType.MONOCULAR)
-    paths = []
-    for i in (0, 2):
-        paths.append(str(tmp_path / f"{i}.png"))
-        Image.fromarray(np.clip(ds.getImage(i), 0, 255).astype(np.uint8)).save(paths[-1])
-    out = _printed(capsys, lambda: main_feature_matching.main(
-        ["--img1", paths[0], "--img2", paths[1], "--features", "AKAZE", "--device", "cpu"]))
-    assert int(out[1].split()[1]) > 0
-
-
-def _ref_main(ref, argv):
-    import sys
-
-    saved = sys.argv
-    sys.argv = ["main_feature_matching.py"] + argv
-    try:
-        return ref.main()
-    finally:
-        sys.argv = saved
-
-
-def test_main_feature_matching_refuses_loftr_and_needs_the_card(capsys):
-    """LOFTR has no per-image extraction (its ``detectAndCompute`` raises,
-    as the reference tracker's); without a card the default device is an
-    error, never a run on the CPU."""
-    import torch
-
-    from pyslam_tpu_torch import main_feature_matching
-
-    with pytest.raises(NotImplementedError, match="detector-free"):
-        main_feature_matching.main(["--features", "LOFTR", "--device", "cpu"])
-    if torch.cuda.is_available():
-        return
-    with pytest.raises(SystemExit) as e:
-        main_feature_matching.main([])
     assert e.value.code == 2 and "no CUDA device" in capsys.readouterr().err

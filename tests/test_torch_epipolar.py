@@ -39,6 +39,7 @@ from tests.torch_parity import rng
 from pyslam_tpu.ops import epipolar as jepi
 from pyslam_tpu_torch.ops import epipolar
 from pyslam_tpu_torch.utils.padding import pad_bucket, pad_rows
+from tests.torch_parity import shared_jax_compile_cache  # noqa: F401  (module fixture)
 
 SEEDS = range(8)
 F_PX = 500.0

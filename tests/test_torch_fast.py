@@ -17,6 +17,7 @@ from pyslam_tpu.ops import pallas_fast
 from pyslam_tpu_torch.ops import fast as tfast
 from pyslam_tpu_torch.ops import image as timage
 from tests.torch_parity import f32, np_, rng, synth_image, t
+from tests.torch_parity import shared_jax_compile_cache  # noqa: F401  (module fixture)
 
 
 def _band_image(r):

@@ -44,6 +44,7 @@ from pyslam_tpu_torch.features import classical as tclass
 from pyslam_tpu_torch.features import surf as tsurf
 from pyslam_tpu_torch.ops import patches as tpatches
 from tests.torch_parity import np_, rng, synth_image, t
+from tests.torch_parity import shared_jax_compile_cache  # noqa: F401  (module fixture)
 
 
 def noisy_image(seed, h, w):

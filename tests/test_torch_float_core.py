@@ -57,6 +57,7 @@ from pyslam_tpu_torch.ops import slam_matching as tsm
 from pyslam_tpu_torch.slam.camera import PinholeCamera
 from pyslam_tpu_torch.slam.frame import Frame
 from pyslam_tpu_torch.slam.map import MapPointStorage
+from tests.torch_parity import shared_jax_compile_cache  # noqa: F401  (module fixture)
 
 N_FRAMES = 8
 RELOC_TOL = 5e-3

@@ -24,6 +24,7 @@ from pyslam_tpu.io.dataset import SyntheticDataset as JaxSyntheticDataset
 from pyslam_tpu.ops import image as jimage
 from pyslam_tpu_torch.ops import image as timage
 from tests.torch_parity import f32, np_, rng, t
+from tests.torch_parity import shared_jax_compile_cache  # noqa: F401  (module fixture)
 
 # (input, output) sizes of the resize on the main path (376x1241, 8
 # levels) and in the parity tests (240x320)

@@ -17,6 +17,7 @@ from pyslam_tpu.io import dataset_factory as jax_factory_mod
 from pyslam_tpu.io import ground_truth as jax_gt
 from pyslam_tpu_torch.io import dataset_factory as port_factory_mod
 from pyslam_tpu_torch.io import ground_truth as port_gt
+from tests.torch_parity import shared_jax_compile_cache  # noqa: F401  (module fixture)
 
 H, W = 24, 32
 

@@ -24,6 +24,7 @@ from pyslam_tpu_torch.features import matcher as tmatcher
 from pyslam_tpu_torch.features.types import NormType
 from pyslam_tpu_torch.models.lightglue import LightGlueMatcher, LightGlueNet
 from tests.torch_parity import np_, t
+from tests.torch_parity import shared_jax_compile_cache  # noqa: F401  (module fixture)
 
 TOL = 1e-4
 

@@ -21,6 +21,7 @@ from tests.torch_parity import rng, synth_image
 
 from pyslam_tpu.ops import fast as jfast, image as jimage, lk as jlk, nms as jnms
 from pyslam_tpu_torch.ops import image, lk
+from tests.torch_parity import shared_jax_compile_cache  # noqa: F401  (module fixture)
 
 PTS_TOL_PX = 1e-3
 PYR_TOL = 1e-4

@@ -31,6 +31,7 @@ from pyslam_tpu_torch import interop
 from pyslam_tpu_torch.models import loftr
 from pyslam_tpu_torch.models.torch_convert import loftr_from_torch
 from tests.torch_parity import compiled_flax_init, flat_variables, rel_err, rng
+from tests.torch_parity import shared_jax_compile_cache  # noqa: F401  (module fixture)
 
 TOL = 1e-5
 XY_TOL = 1e-4
@@ -158,8 +159,9 @@ def test_loftr_from_torch_round_trip(nets, tmp_path):
     torch.save({"state_dict": sd}, path)
     got = loftr.LoFTRMatcher(_port_cfg(CFG), checkpoint=path, device="cpu")
     assert got.trained
-    with jax.enable_x64(False):
+    with jax.enable_x64(False), compiled_flax_init():
         ref = jloftr.LoFTRMatcher(CFG)
+    with jax.enable_x64(False):
         ref.params = jloftr.loftr_from_torch(
             {k: v for k, v in sd.items() if "pos_encoding" not in k and "num_batches" not in k},
             ref.params)

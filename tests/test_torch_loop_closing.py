@@ -1,6 +1,7 @@
 """The loop-closing slice of the port against the JAX package on one map:
-the JAX ``Slam`` (no loop detector, x64 off as it runs outside the tests)
-tracks 40 frames of the 240x320 stereo loop stream (period 160), the map is
+the JAX ``Slam`` (no loop detector, x64 off as it runs outside the tests,
+local mapping drained after every frame) tracks 40 frames of the 240x320
+stereo loop stream (period 160), the map is
 carried across with ``interop.map_from_tpu_json``, and both packages'
 ``LoopClosing`` register its keyframes in their databases, then check
 keyframe pairs and correct one.  The port draws the reference's minimal
@@ -42,6 +43,7 @@ from pyslam_tpu_torch.interop import map_from_tpu_json
 from pyslam_tpu_torch.io.dataset_types import SensorType
 from pyslam_tpu_torch.loop_closing.loop_closing import LoopClosing
 from pyslam_tpu_torch.slam.camera import PinholeCamera
+from tests.torch_parity import shared_jax_compile_cache  # noqa: F401  (module fixture)
 
 N_FRAMES = 40
 S_TOL = 2e-4
@@ -75,6 +77,10 @@ def session():
         for i in range(N_FRAMES):
             js.track(ds.getImage(i), img_right=ds.getImageRight(i), frame_id=i,
                      timestamp=ds.getTimestamp(i))
+            # the reference's back end polls its device results by readiness
+            # (``jax.Array.is_ready``): drained each frame, its keyframes do
+            # not depend on the host's load
+            js.local_mapping.finish()
         js.finish()
         jlc = JaxLoopClosing(js.map, js.camera, js.feature_tracker, "DBOW3",
                              sensor_type=JaxSensorType.STEREO)

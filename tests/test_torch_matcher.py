@@ -25,6 +25,7 @@ from pyslam_tpu_torch.features.types import NormType
 from pyslam_tpu_torch.ops import hamming as tham
 from pyslam_tpu_torch.ops import matching as tmat
 from tests.torch_parity import np_, rng, t
+from tests.torch_parity import shared_jax_compile_cache  # noqa: F401  (module fixture)
 
 SEEDS = [0, 1, 2]
 

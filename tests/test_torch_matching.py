@@ -15,6 +15,7 @@ from pyslam_tpu.ops import matching as jmat
 from pyslam_tpu_torch.ops import hamming as tham
 from pyslam_tpu_torch.ops import matching as tmat
 from tests.torch_parity import f32, np_, rng, t
+from tests.torch_parity import shared_jax_compile_cache  # noqa: F401  (module fixture)
 
 SEEDS = [0, 1, 2, 3]
 

@@ -14,6 +14,7 @@ from pyslam_tpu.ops import optim as joptim
 from pyslam_tpu_torch.ops import lie as tlie
 from pyslam_tpu_torch.ops import optim as toptim
 from tests.torch_parity import f32, np_, rng, t
+from tests.torch_parity import shared_jax_compile_cache  # noqa: F401  (module fixture)
 
 K = np.array([[500.0, 0, 320], [0, 500.0, 240], [0, 0, 1]], np.float32)
 BF = 500.0 * 0.12

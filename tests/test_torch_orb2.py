@@ -37,6 +37,7 @@ from pyslam_tpu.ops.orb import _make_pattern
 from pyslam_tpu_torch.features.orb2 import ORB2Extractor, extract_pyramid, level_quotas
 from pyslam_tpu_torch.ops import orb as torb
 from tests.torch_parity import f32, np_, t
+from tests.torch_parity import shared_jax_compile_cache  # noqa: F401  (module fixture)
 
 NF, NL = 600, 4
 STEREO = dict(bf=200.0 * 0.2, max_disp=400.0, max_distance=100.0, row_tol=2.0)

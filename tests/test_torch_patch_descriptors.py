@@ -29,6 +29,7 @@ from tests.test_patch_descriptors import (
     _TorchTFeat,
 )
 from tests.torch_parity import flat_variables, np_, rng, synth_image
+from tests.torch_parity import shared_jax_compile_cache  # noqa: F401  (module fixture)
 
 TOL = 1e-5
 KINDS = ("HARDNET", "SOSNET", "L2NET", "TFEAT", "GEODESC", "LOGPOLAR")

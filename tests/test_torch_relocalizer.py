@@ -47,6 +47,7 @@ from pyslam_tpu_torch.loop_closing.vocabulary import HierarchicalVocabulary
 from pyslam_tpu_torch.ops import pnp
 from pyslam_tpu_torch.slam.camera import PinholeCamera
 from pyslam_tpu_torch.slam.frame import Frame
+from tests.torch_parity import shared_jax_compile_cache  # noqa: F401  (module fixture)
 
 POSE_TOL = 1e-3
 RELOC_TOL = 5e-3

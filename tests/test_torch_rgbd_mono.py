@@ -43,6 +43,7 @@ from pyslam_tpu_torch.slam.camera import PinholeCamera
 from pyslam_tpu_torch.slam.frame import Frame, compute_stereo_from_rgbd
 from pyslam_tpu_torch.slam.initializer import Initializer
 from pyslam_tpu_torch.slam.map import Map
+from tests.torch_parity import shared_jax_compile_cache  # noqa: F401  (module fixture)
 
 N_MONO = 7
 TUM_D = [0.262383, -0.953104, -0.005358, 0.002628, 1.163314]

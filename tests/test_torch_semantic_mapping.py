@@ -33,6 +33,7 @@ from pyslam_tpu_torch.semantics import semantic_eval, semantic_mapping as sm
 from pyslam_tpu_torch.semantics import semantic_segmentation as seg
 from pyslam_tpu_torch.slam.map import Map
 from tests.torch_parity import rel_err, rng
+from tests.torch_parity import shared_jax_compile_cache  # noqa: F401  (module fixture)
 
 SCORE_TOL = 1e-6
 EMB_TOL = 1e-5

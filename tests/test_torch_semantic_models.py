@@ -2,7 +2,7 @@
 segformer,clip,yolo_seg,detr}.py) against the JAX package's, with its
 ``PRNGKey(0)`` weights carried across (``interop.*_state_dict``), the JAX
 package run with x64 off, at small sizes: DeepLabV3 over ResNet-18 on a
-64x80 canvas, SegFormer at 64x96, CLIP at the small configuration of
+64x80 canvas (tests/test_torch_semantic_deeplab.py), SegFormer at 64x96, CLIP at the small configuration of
 tests/test_semantic_backends.py, YOLO-seg at 128 px and width 8, DETR at
 128 px, dim 64, one encoder and one decoder layer.
 
@@ -25,8 +25,6 @@ a declared departure) equal to the reference's ``exp(sim / T)`` within
 1e-6 wherever that is finite, and finite where it overflows.
 """
 
-import functools
-
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -34,7 +32,6 @@ import pytest
 import torch
 
 from pyslam_tpu.models import clip as jclip
-from pyslam_tpu.models import deeplabv3 as jdl
 from pyslam_tpu.models import detr as jdetr
 from pyslam_tpu.models import segformer as jseg
 from pyslam_tpu.models import yolo_seg as jyolo
@@ -43,6 +40,7 @@ from pyslam_tpu_torch import interop
 from pyslam_tpu_torch.models import clip, deeplabv3, detr, segformer, yolo_seg
 from pyslam_tpu_torch.semantics import semantic_segmentation as semseg
 from tests.torch_parity import compiled_flax_init, flat_variables, np_, rel_err, rng
+from tests.torch_parity import shared_jax_compile_cache  # noqa: F401  (module fixture)
 
 TOL = 1e-4
 CLIP_SMALL = dict(img_px=64, vit_patch=16, vit_dim=48, vit_depth=2, vit_heads=4, text_dim=32,
@@ -67,70 +65,6 @@ def assert_labels_but_near_ties(got, want, scores, axis=-1):
     differ = got != want
     assert not (differ & ~tie).any(), int((differ & ~tie).sum())
     assert differ.mean() <= 0.01
-
-
-# ---------------------------------------------------------------- DeepLabV3
-@pytest.fixture(scope="module")
-def deeplab():
-    """The JAX package's segmenter over ResNet-18 (its class fixes
-    ResNet-50), and the port's with its weights."""
-    with pytest.MonkeyPatch.context() as mp, jax.enable_x64(False), compiled_flax_init():
-        mp.setattr(jdl, "DeepLabV3", functools.partial(jdl.DeepLabV3, arch="resnet18"))
-        ref = jdl.DeepLabV3Segmenter(num_classes=6)
-    got = deeplabv3.DeepLabV3Segmenter(num_classes=6, device="cpu")
-    assert not got.trained and got.net.backbone.arch == "resnet50"
-    got.net = deeplabv3.DeepLabV3(num_classes=6, arch="resnet18")
-    got.net.load_state_dict(interop.deeplabv3_state_dict(flat_variables(ref.variables)))
-    got.net.eval()
-    return ref, got
-
-
-def test_deeplabv3_logits(deeplab):
-    ref, got = deeplab
-    x = got.prepare(_image(1, 60, 75))
-    assert x.shape == (64, 80, 3)
-    with jax.enable_x64(False):
-        want = np.asarray(ref.net.apply(ref.variables, jnp.asarray(x[None])))[0]
-    out = np_(got.logits(x)).transpose(1, 2, 0)
-    assert out.shape == (64, 80, 6) and rel_err(out, want) <= TOL
-
-
-def test_deeplabv3_infer(deeplab):
-    ref, got = deeplab
-    img = _image(2, 60, 75)
-    with jax.enable_x64(False):
-        want = ref.infer(img)
-    out = got.infer(img)
-    assert out["labels"].dtype == np.int32 and out["labels"].shape == (60, 75)
-    assert rel_err(out["probs"], want["probs"]) <= TOL
-    logits = np_(got.logits(got.prepare(img)))[:, :60, :75]
-    assert_labels_but_near_ties(out["labels"], want["labels"], logits, axis=0)
-
-
-def test_deeplabv3_from_torch():
-    """A torchvision-layout checkpoint (``aux_classifier`` and the batch
-    counters included) loads into both packages: the same logits."""
-    from pyslam_tpu.models.deeplabv3 import deeplabv3_from_torch as jconvert
-    from pyslam_tpu_torch.models.torch_convert import _DEEPLAB_HEAD, deeplabv3_from_torch
-
-    net = deeplabv3.DeepLabV3(num_classes=5, arch="resnet18")
-    interop.seeded_init_(net, 3)
-    to_tv = {v: k for k, v in _DEEPLAB_HEAD.items()}
-    sd = {}
-    for k, v in net.state_dict().items():
-        mod, leaf = k.rsplit(".", 1)
-        sd[k if k.startswith("backbone.") else f"{to_tv[mod]}.{leaf}"] = v.clone()
-    sd["backbone.bn1.num_batches_tracked"] = torch.tensor(7)
-    sd["aux_classifier.0.weight"] = torch.zeros(3)
-    got = deeplabv3.DeepLabV3(num_classes=5, arch="resnet18")
-    got.load_state_dict(deeplabv3_from_torch(sd))
-    x = rng(4).normal(size=(48, 64, 3)).astype(np.float32)
-    jnet = jdl.DeepLabV3(num_classes=5, arch="resnet18")
-    with jax.enable_x64(False):
-        want = np.asarray(jnet.apply(jconvert(sd, 5), jnp.asarray(x[None])))[0]
-    with torch.no_grad():
-        out = got(torch.from_numpy(x).permute(2, 0, 1)[None])[0].numpy().transpose(1, 2, 0)
-    assert rel_err(out, want) <= TOL
 
 
 # ---------------------------------------------------------------- SegFormer

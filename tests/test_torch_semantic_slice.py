@@ -43,6 +43,7 @@ from pyslam_tpu_torch.semantics.semantic_segmentation import IntensityBandSegmen
 from pyslam_tpu_torch.slam.camera import PinholeCamera
 from pyslam_tpu_torch.slam.slam import Slam
 from tests import torch_parity  # noqa: F401  (one small torch thread pool per worker)
+from tests.torch_parity import shared_jax_compile_cache  # noqa: F401  (module fixture)
 
 N_FRAMES = 12
 

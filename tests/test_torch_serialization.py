@@ -51,6 +51,7 @@ from pyslam_tpu_torch.slam import map_serialization_ref as ref
 from pyslam_tpu_torch.slam.camera import PinholeCamera
 from pyslam_tpu_torch.slam.slam import Slam
 from pyslam_tpu_torch.slam.tracking import TrackingState
+from tests.torch_parity import shared_jax_compile_cache  # noqa: F401  (module fixture)
 
 N_FRAMES = 8
 POSE_TOL = 1e-12

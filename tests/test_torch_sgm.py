@@ -25,6 +25,7 @@ from pyslam_tpu.slam.camera import PinholeCamera as JaxCamera
 from pyslam_tpu_torch.depth_estimation import depth_estimator as TD
 from pyslam_tpu_torch.depth_estimation import sgm as T
 from pyslam_tpu_torch.slam.camera import PinholeCamera
+from tests.torch_parity import shared_jax_compile_cache  # noqa: F401  (module fixture)
 
 
 @pytest.fixture(scope="module")

@@ -27,6 +27,7 @@ from pyslam_tpu.ops import optim as joptim
 from pyslam_tpu.ops import procrustes as jproc
 from pyslam_tpu_torch.ops import lie, optim, procrustes
 from pyslam_tpu_torch.ops.epipolar import _sample_minimal, generator_sampler
+from tests.torch_parity import shared_jax_compile_cache  # noqa: F401  (module fixture)
 
 K = np.array([[200.0, 0.0, 160.0], [0.0, 200.0, 120.0], [0.0, 0.0, 1.0]], np.float32)
 MAP_TOL = 1e-5

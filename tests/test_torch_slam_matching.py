@@ -12,6 +12,7 @@ from pyslam_tpu.ops import slam_matching as jsm
 from pyslam_tpu.ops.geometry import fundamental_np
 from pyslam_tpu_torch.ops import slam_matching as tsm
 from tests.torch_parity import f32, np_, rng, t
+from tests.torch_parity import shared_jax_compile_cache  # noqa: F401  (module fixture)
 
 K = np.array([[200.0, 0, 160], [0, 200.0, 120], [0, 0, 1]], np.float32)
 IB = np.array([0, 320, 0, 240], np.float32)

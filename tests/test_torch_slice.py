@@ -17,6 +17,7 @@ from pyslam_tpu_torch.io.synthetic import SyntheticDataset
 from pyslam_tpu_torch.ops.fast import fast_nms
 from pyslam_tpu_torch.slam.camera import PinholeCamera
 from pyslam_tpu_torch.slam.slam import Slam
+from tests.torch_parity import shared_jax_compile_cache  # noqa: F401  (module fixture)
 
 
 def _stream():

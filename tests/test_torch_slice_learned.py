@@ -50,6 +50,7 @@ from pyslam_tpu_torch.slam.camera import PinholeCamera
 from pyslam_tpu_torch.slam.slam import Slam
 from tests.test_torch_slice_superpoint import _cam, _run
 from tests.torch_parity import compiled_flax_init, flat_variables
+from tests.torch_parity import shared_jax_compile_cache  # noqa: F401  (module fixture)
 
 N_FRAMES = 20
 N_FEATURES = 300

@@ -26,6 +26,7 @@ from pyslam_tpu.models.train_superpoint import (
 from pyslam_tpu_torch import interop
 from pyslam_tpu_torch.models.superpoint import SuperPointExtractor
 from tests.torch_parity import np_, rng, synth_image
+from tests.torch_parity import shared_jax_compile_cache  # noqa: F401  (module fixture)
 
 TOL = 1e-4
 

@@ -30,6 +30,7 @@ from tests.torch_parity import (
     rel_err,
     rng,
 )
+from tests.torch_parity import shared_jax_compile_cache  # noqa: F401  (module fixture)
 
 TOL = 1e-4
 N = 400

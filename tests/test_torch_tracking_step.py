@@ -29,6 +29,7 @@ from pyslam_tpu_torch.slam.camera import PinholeCamera
 from pyslam_tpu_torch.slam.frame import Frame
 from pyslam_tpu_torch.slam.slam import Slam
 from pyslam_tpu_torch.slam.tracking import TrackingState
+from tests.torch_parity import shared_jax_compile_cache  # noqa: F401  (module fixture)
 
 N = 8
 

@@ -29,6 +29,7 @@ from scipy.spatial.transform import Rotation
 import tests.torch_parity  # noqa: F401  (caps torch threads per test worker)
 from pyslam_tpu.dense import tsdf as J
 from pyslam_tpu_torch.dense import tsdf as T
+from tests.torch_parity import shared_jax_compile_cache  # noqa: F401  (module fixture)
 
 FIELDS = ("keys", "occupied", "tsdf", "weight", "color")
 

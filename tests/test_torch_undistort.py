@@ -16,6 +16,7 @@ from pyslam_tpu.ops import geometry as jgeom
 from pyslam_tpu.slam.camera import PinholeCamera as JaxCamera
 from pyslam_tpu_torch.ops import geometry
 from pyslam_tpu_torch.slam.camera import PinholeCamera
+from tests.torch_parity import shared_jax_compile_cache  # noqa: F401  (module fixture)
 
 TOL_PX = 1e-5
 # (width, height, fx, fy, cx, cy), D: TUM fr1, fr2, fr3 and EuRoC cam0

@@ -37,6 +37,7 @@ import torch
 from pyslam_tpu.loop_closing import vlad as jvlad
 from pyslam_tpu_torch.loop_closing import vlad
 from tests.torch_parity import rel_err, rng
+from tests.torch_parity import shared_jax_compile_cache  # noqa: F401  (module fixture)
 
 TOL = 1e-5
 NEAR_TIE = 1e-4

@@ -39,6 +39,7 @@ from pyslam_tpu_torch.io.ground_truth import groundtruth_factory
 from pyslam_tpu_torch.slam.camera import PinholeCamera
 from pyslam_tpu_torch.slam.visual_odometry import VisualOdometry
 from pyslam_tpu_torch.slam.visual_odometry_rgbd import VisualOdometryRgbd
+from tests.torch_parity import shared_jax_compile_cache  # noqa: F401  (module fixture)
 
 N = 8
 

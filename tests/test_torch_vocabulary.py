@@ -17,6 +17,7 @@ from pyslam_tpu.loop_closing import vocabulary as jvoc
 from pyslam_tpu.loop_closing.keyframe_database import KeyFrameDatabase as JaxDB
 from pyslam_tpu_torch.loop_closing import vocabulary as pvoc
 from pyslam_tpu_torch.loop_closing.keyframe_database import KeyFrameDatabase
+from tests.torch_parity import shared_jax_compile_cache  # noqa: F401  (module fixture)
 
 
 @pytest.fixture(scope="module")

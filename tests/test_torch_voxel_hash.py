@@ -25,6 +25,7 @@ import torch
 import tests.torch_parity  # noqa: F401  (caps torch threads per test worker)
 from pyslam_tpu.ops import voxel_hash as J
 from pyslam_tpu_torch.ops import voxel_hash as T
+from tests.torch_parity import shared_jax_compile_cache  # noqa: F401  (module fixture)
 
 FIELDS = ("keys", "occupied", "tsdf", "weight", "color")
 

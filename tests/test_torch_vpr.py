@@ -30,6 +30,7 @@ from pyslam_tpu_torch import interop
 from pyslam_tpu_torch.loop_closing import vpr
 from pyslam_tpu_torch.models import megaloc, netvlad
 from tests.torch_parity import compiled_flax_init, flat_variables, rel_err, rng
+from tests.torch_parity import shared_jax_compile_cache  # noqa: F401  (module fixture)
 
 TOL = 1e-5
 MEGALOC_CFG = dict(img_px=56, patch=14, dim=64, depth=2, heads=4, clusters=8, cluster_dim=16,
@@ -109,8 +110,9 @@ def test_alexnet(tmp_path):
     torch.save(sd, path)
     loaded = vpr.AlexNetExtractor(img_px=128, checkpoint=path, device="cpu")
     assert loaded.trained
-    with jax.enable_x64(False):
+    with jax.enable_x64(False), compiled_flax_init():
         ref2 = jvpr.AlexNetExtractor(img_px=128, checkpoint=path)
+    with jax.enable_x64(False):
         want = ref2(_img(4))
     assert rel_err(loaded(_img(4)), want) <= TOL
 

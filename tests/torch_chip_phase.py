@@ -10,9 +10,12 @@ out) or 17 (the depth models card against CPU, the SGBM upgrade of a
 monocular session with the TSDF and the learned upgrades; ``17a`` the
 models alone) or 18 (the semantic models card against CPU, the weight-free
 semantic session with its floor and integrate_semantic card against CPU,
-the learned segmenters' sessions; ``18a`` the models alone).
+the learned segmenters' sessions; ``18a`` the models alone) or 19 (VGGT
+and Fast3R card against CPU, main_scene_from_views and every scene-from-
+views backend, the Gaussian-splatting session, main_map_dense_reconstruction;
+``19a`` the two models alone).
 
-    PYTHONPATH=. python3 tests/torch_chip_phase.py 8|12|13|14|15|16|16abc|17|17a|18|18a
+    PYTHONPATH=. python3 tests/torch_chip_phase.py 8|12|13|14|15|16|16abc|17|17a|18|18a|19|19a
 
 Builds the kernels, renders the phase's frames as chip_smoke.py does and
 runs its function for the phase; prints what the phase prints.  Run from
@@ -35,7 +38,7 @@ def main():
     from pyslam_tpu_torch.slam.camera import PinholeCamera
 
     arg = sys.argv[1]
-    phase = int(arg[:2]) if arg[:2] in ("16", "17", "18") else int(arg)
+    phase = int(arg[:2]) if arg[:2] in ("16", "17", "18", "19") else int(arg)
     dev = torch.device("cuda", 0)
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -130,8 +133,26 @@ def main():
         out = (cs.semantic_phase(dev, frames, cam, ds) if arg == "18"
                else {"models": cs.semantic_models_phase(dev, frames)})
         print(json.dumps({"semantic": out}, default=float), flush=True)
+    elif phase == 19:
+        if arg == "19a":
+            from pyslam_tpu_torch.io.dataset_types import SensorType
+            from pyslam_tpu_torch.io.synthetic import SyntheticDataset
+
+            sds = SyntheticDataset(num_frames=cs.SCENE_VIEWS * 3,
+                                   sensor_type=SensorType.MONOCULAR, trajectory="line",
+                                   step=0.5)
+            views = [sds.getImage(i * 3) for i in range(cs.SCENE_VIEWS)]
+            t0 = time.time()
+            out = {"models": cs.recon_models_phase(dev, views)}
+        else:
+            rgbd_frames = cs.render(cs.render_rgbd_frames, cs.GS_FRAMES)
+            cam_rgbd = PinholeCamera(ds.w, ds.h, ds.fx, ds.fy, ds.cx, ds.cy, fps=ds.fps,
+                                     bf=ds.fx * cs.BASELINE_M, depth_threshold=35.0)
+            t0 = time.time()
+            out = cs.reconstruction_phase(dev, rgbd_frames, cam_rgbd, cs.bench_stream("RGBD"))
+        print(json.dumps({"reconstruction": out}, default=float), flush=True)
     else:
-        raise SystemExit(f"phase {phase}: only 8, 12, 13, 14, 15, 16, 17 and 18 run alone")
+        raise SystemExit(f"phase {phase}: only 8, 12, 13, 14, 15, 16, 17, 18 and 19 run alone")
     print(f"phase {phase}: {time.time() - t0:.1f} s", flush=True)
 
 

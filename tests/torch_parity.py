@@ -4,12 +4,40 @@ both sides (the test session runs JAX with x64 on, so a float64 array would
 silently run the reference in float64)."""
 
 import contextlib
+import os
 
 import numpy as np
+import pytest
 import torch
 
 # the suite runs several xdist workers: keep each one's torch pool small
 torch.set_num_threads(2)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def shared_jax_compile_cache(tmp_path_factory):
+    """JAX's persistent compilation cache for the module that imports this
+    fixture: the JAX references that several port test files build (the
+    same flax models, the same JAX ``Slam`` graphs) compile once a test run
+    and are read back by every other xdist worker, in a directory the run's
+    workers share (beside their own base temporary directories), which a
+    new run starts empty.  Off again after the module, so the JAX package's
+    own test files run as they always have.  A cache entry that fails to
+    load is compiled anew (JAX warns)."""
+    import jax
+    from jax._src import compilation_cache
+
+    base = tmp_path_factory.getbasetemp()
+    root = base.parent if os.environ.get("PYTEST_XDIST_WORKER") else base
+    path = root / "jax_compile_cache"
+    path.mkdir(exist_ok=True)
+    jax.config.update("jax_compilation_cache_dir", str(path))
+    compilation_cache.reset_cache()
+    try:
+        yield path
+    finally:
+        jax.config.update("jax_compilation_cache_dir", None)
+        compilation_cache.reset_cache()
 
 
 def rng(seed: int = 0) -> np.random.Generator:
