@@ -52,11 +52,11 @@ Phases (one line each, and any failure exits non-zero):
      kernel launches and summed kernel time (torch.profiler) of one
      geometry check, one correction (without its GBA), its pose graph alone,
      a GBA dispatch (problem and first chunk) and a GBA chunk;
-  9. the RGBD stage: the 60 frames of phase 7's stream as left image and
-     sensor depth through Slam(sensor_type=RGBD).track() with next-frame
-     prefetch, bf = fx * 0.54 for the virtual right coordinates, and the
-     TSDF integrator of phase 7 on the sensor depth (no SGM); asserts 60/60
-     tracked, one fast_nms launch a frame, every keyframe integrated and ATE
+  9. the RGBD stage: the first RGBD_FRAMES of phase 7's stream as left
+     image and sensor depth through Slam(sensor_type=RGBD).track() with
+     next-frame prefetch, bf = fx * 0.54 for the virtual right coordinates,
+     and the TSDF integrator of phase 7 on the sensor depth (no SGM);
+     asserts every frame tracked, one fast_nms launch a frame, every keyframe integrated and ATE
      under the ceiling; prints FPS, p50 / p95 latency, keyframes, the load
      factor and the peak device memory;
  10. the monocular stage: the same 60 left images through
@@ -228,10 +228,10 @@ Phases (one line each, and any failure exits non-zero):
         on phase 7's frame 0, card against CPU within DENSE_TOL and the
         labels identical but at near-ties; forward ms, GFLOP, share of the
         float32 peak, launches and kernel ms;
-     b. phase 7's stream and configuration with the intensity-band
+     b. phase 7's first SEM_FRAMES frames and configuration with the intensity-band
         segmenter (19 classes, the Cityscapes weights) attached through
         Slam.set_semantic_mapping, the VOXEL_SEMANTIC_GRID integrator from
-        the factory and kUseSemanticsInOptimization on: 60/60 tracked, one
+        the factory and kUseSemanticsInOptimization on: every frame tracked, one
         fast_nms launch a frame, ATE under ATE_MAX, every keyframe handed
         over labelled with the bands of its image under its rounded raw
         keypoints, every valid point of a labelled keyframe scored, the
@@ -400,13 +400,18 @@ WITNESS_SP = (28, 27, 13.1819)
 SP_TRACK_MARGIN = 2
 WITNESS_VO_LG_ATE, VO_LG_ATE_TOL = 13.8545, 1e-3
 WITNESS_COSPLACE = (143, 3, 0.6465)
-# the depth of an earlier path, cut for phase 16's time (the whole script:
-# PR 9 610.3 s; PR 10 before this cut 913.8 s on a slower host): phase 12's
+# the depth of earlier paths, cut for the later phases' time: phase 12's
 # ORB2_BEBLID and ROOT_SIFT sessions run the first PRESET_FRAMES of phase
-# 7's 60 frames.  (Phase 14c's COSPLACE stage cannot be cut so: its ATE
-# stays under ATE_MAX only through the loop's correction near frame 145;
-# 70 frames ended at 3.7629 m.)
-PRESET_FRAMES = 30
+# 7's 60 frames (30 for phase 16, the whole script then 913.8 s on a slower
+# host; 20 for phase 19, whose first full runs took 1026.8 s and, on a
+# slower host, 1211.0 s); the sessions of 15b-c, 16b and 18c their first 10
+# frames (LEARNED_FRAMES, MAST3R_FRAMES, SEM_LEARNED_FRAMES, 20 before
+# phase 19), 18b phase 7's first SEM_FRAMES and phase 9 the first
+# RGBD_FRAMES of its 60 (the later phases take all 60).  (Phase 14c's COSPLACE
+# stage cannot be cut so: its ATE stays under ATE_MAX only through the
+# loop's correction near frame 145; 70 frames ended at 3.7629 m.)
+PRESET_FRAMES = 20
+RGBD_FRAMES = 30
 # float32 operations a second of the H100 SXM outside the tensor cores,
 # counting a multiply-add as two (NVIDIA data sheet, 700 W)
 PEAK_FP32_FLOPS = 67e12
@@ -416,7 +421,7 @@ PEAK_FP32_FLOPS = 67e12
 # identical, the rest at responses within LEARNED_TOL, descriptors within
 # LEARNED_TOL.  The sessions run the first LEARNED_FRAMES frames.
 LEARNED_TOL = 1e-4
-LEARNED_FRAMES = 20
+LEARNED_FRAMES = 10
 # ALIKED refines its keypoints by a soft-argmax: a slot is identical when
 # its grid keypoint is, its refined position within this many px
 LEARNED_XY_TOL = {"ALIKED": 1e-4}
@@ -466,7 +471,7 @@ DENSE_TOL = 1e-4
 KMEANS_NEAR_TIE = 1e-4
 LOFTR_NN_SAME = 0.99
 LOFTR_XY_TOL = 1e-3
-MAST3R_FRAMES = 20
+MAST3R_FRAMES = 10
 VPR_DETECTORS = ("NETVLAD", "MEGALOC", "ALEXNET", "HDC_DELF", "VLAD", "SAD")
 # bench.py's loop stage with VLAD: the JAX package on the CPU (python -m
 # tests.torch_loop_stage --package jax --loop VLAD, x64 off) tracks 142 of
@@ -515,7 +520,8 @@ WITNESS_DEPTH_LEARNED = {"depth_anything_v2": (3, 1, float("nan")),
 # SEM_SCORES_TOL of their largest (the card adds in atomic order); 18c runs
 # SEGFORMER and CLIP (FEATURE_VECTOR) sessions of SEM_LEARNED_FRAMES frames
 SEM_SCORES_TOL = 1e-5
-SEM_LEARNED_FRAMES = 20
+SEM_LEARNED_FRAMES = 10
+SEM_FRAMES = 30
 SEM_CLIP_LABELS = ("floor", "wall", "ceiling", "furniture", "object", "person", "vehicle",
                    "vegetation")
 
@@ -1602,8 +1608,9 @@ def preset_session(dev, preset, frames, cam, ds, loop=None):
         torch.cuda.synchronize()
         fast_nms.launches = 0
         lats, t_start, n = [], None, len(frames)
+        skip = min(10, n - 1)    # the first frames warm up
         for i, (img_l, img_r, ts) in enumerate(frames):
-            if i == 10:
+            if i == skip:
                 t_start = time.perf_counter()
             nxt = None
             if i + 1 < n:
@@ -1620,19 +1627,19 @@ def preset_session(dev, preset, frames, cam, ds, loop=None):
         wall = time.perf_counter() - t_start
         ts_est, poses = slam.get_final_trajectory()
         gt_t = np.asarray([ds.getTimestamp(i) for i in range(n)])
-        lat_ms = np.asarray(lats[10:]) * 1e3
+        lat_ms = np.asarray(lats[skip:]) * 1e3
         out = dict(preset=preset, loop=loop, launches=fast_nms.launches, resets=len(resets),
                    n_tracked=len(slam.tracking.history.timestamps),
                    keyframes=slam.map.num_keyframes(), points=slam.map.num_points(),
                    desc=f"{slam.map.points.desc.shape[1]}x{slam.map.points.desc.dtype}",
                    desc_devices=sorted(set(desc_devices)), described=len(desc_devices),
-                   fps=(n - 10) / wall, p50_ms=float(np.percentile(lat_ms, 50)),
+                   fps=(n - skip) / wall, p50_ms=float(np.percentile(lat_ms, 50)),
                    p95_ms=float(np.percentile(lat_ms, 95)),
                    ate=(float(eval_ate(ts_est, poses[:, :3, 3], gt_t, ds.poses[:n, :3, 3],
                                        align=True, with_scale=False).rmse)
                         if len(ts_est) >= 3 else float("nan")))
         assert slam.map.device.type == torch.device(dev).type
-        log(f"{tag} loop={loop}: {out['fps']:.2f} FPS over frames 10-{n - 1} (incl. final "
+        log(f"{tag} loop={loop}: {out['fps']:.2f} FPS over frames {skip}-{n - 1} (incl. final "
             f"drain), latency p50 {out['p50_ms']:.1f} ms p95 {out['p95_ms']:.1f} ms; "
             f"{out['n_tracked']}/{n} tracked, {out['resets']} resets, {out['keyframes']} "
             f"keyframes, {out['points']} points ({out['desc']} descriptors), ATE "
@@ -2109,7 +2116,8 @@ def learned_sessions_phase(dev, frames, cam, ds):
         log(f"[learned] {preset} {n} frames on the card: {sess['n_tracked']} tracked, "
             f"{sess['resets']} resets, {sess['keyframes']} keyframes, ATE {sess['ate']:.4f} m, "
             f"p50 {sess['p50_ms']:.1f} ms; the JAX package on the CPU with its own PRNGKey(0) "
-            f"weights (not the port's): {w[0]} tracked, {w[1]} resets, ATE {w[2]} m")
+            f"weights (not the port's) over 20 frames: {w[0]} tracked, {w[1]} resets, ATE "
+            f"{w[2]} m")
         assert sess["desc_devices"] == [torch.device(dev).type] and sess["described"] >= n, sess
         if preset == "ORB2_HARDNET":
             assert sess["launches"] == n, f"{sess['launches']} fast_nms launches for {n} frames"
@@ -2982,7 +2990,8 @@ def semantic_phase(dev, frames, cam, ds, voxels_per_frame=None):
 
     out = {"models": semantic_models_phase(dev, frames)}
     # 18b: the weight-free session with a floor
-    n = len(frames)
+    frames_b = frames[:SEM_FRAMES]
+    n = len(frames_b)
     bands = IntensityBandSegmentation(19)
     sem = SemanticMappingDense(Map(device=dev), SemanticMappingConfig(num_classes=19,
                                                                       dataset="cityscapes"),
@@ -2991,7 +3000,7 @@ def semantic_phase(dev, frames, cam, ds, voxels_per_frame=None):
     try:
         integ = build_integrator(cam, dev, VolumetricIntegratorType.VOXEL_SEMANTIC_GRID)
         Parameters.kUseSemanticsInOptimization = True
-        sb, slam, segmented = semantic_session(dev, frames, cam, ds, sem, integ)
+        sb, slam, segmented = semantic_session(dev, frames_b, cam, ds, sem, integ)
     finally:
         Parameters.set_from_dict(saved)
     assert isinstance(integ.volume, SemanticTSDFVolume)
@@ -3008,10 +3017,10 @@ def semantic_phase(dev, frames, cam, ds, voxels_per_frame=None):
         assert np.array_equal(kf.kps_sem, want[ys, xs]), kf.id
         unscored += [int(p) for p in slam.map.resolve_replacements(pids)
                      if p >= 0 and slam.map.points.valid[p] and int(p) not in sem.point_scores]
-    dropped, valid = keyframe_drops(integ.volume, integ._depth_provider, cam, frames[-1][0],
-                                    frames[-1][1], ds.poses[n - 1])
+    dropped, valid = keyframe_drops(integ.volume, integ._depth_provider, cam, frames_b[-1][0],
+                                    frames_b[-1][1], ds.poses[n - 1])
     if voxels_per_frame is None:
-        voxels_per_frame = frame_voxels(integ.volume, integ._depth_provider, cam, frames,
+        voxels_per_frame = frame_voxels(integ.volume, integ._depth_provider, cam, frames_b,
                                         ds.poses[:n])
     table = check_table(integ.volume.table, integ.volume.num_integrated, voxels_per_frame,
                         dropped / max(valid, 1))
@@ -3981,9 +3990,10 @@ def main():
         environment_type=type("E", (), {"name": "OUTDOOR"})(),
         voxel_size=VOXEL_SIZE, sdf_trunc=SDF_TRUNC, device=dev)
     assert integ._depth_provider is None and integ.volume.capacity == TABLE_CAPACITY
-    rgbd, slam, _ = sensor_stage(dev, "RGBD", rgbd_frames, cam_rgbd, ds_rgbd, integ)
-    assert rgbd["launches"] == N_FRAMES, f"{rgbd['launches']} fast_nms launches"
-    assert rgbd["n_tracked"] == N_FRAMES, f"{rgbd['n_tracked']}/{N_FRAMES} tracked"
+    rgbd, slam, _ = sensor_stage(dev, "RGBD", rgbd_frames[:RGBD_FRAMES], cam_rgbd, ds_rgbd,
+                                 integ)
+    assert rgbd["launches"] == RGBD_FRAMES, f"{rgbd['launches']} fast_nms launches"
+    assert rgbd["n_tracked"] == RGBD_FRAMES, f"{rgbd['n_tracked']}/{RGBD_FRAMES} tracked"
     assert rgbd["ate"] < ATE_MAX, rgbd["ate"]
     assert rgbd["snapshots"] >= 1 and rgbd["integrated"] == rgbd["snapshots"], rgbd
     assert rgbd["voxels"] > 0 and integ.volume.table.tsdf.device.type == "cuda"

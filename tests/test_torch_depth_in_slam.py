@@ -5,15 +5,19 @@ integrator's host-depth branch, the prefetch rule, and the entry points
 ``main_slam --sensor mono --depth_estimator sgbm`` and
 ``main_depth_prediction`` on the CPU.
 
-The 16-frame SGBM upgrade also runs through the JAX package's ``Slam`` (as
-its own suite runs it, x64 on).  Held equal: the frames tracked (16/16)
-and the sensor type (RGBD).  The keyframe count is held within one: the
-JAX package's back-end readiness is its real asynchronous dispatch
-(``jax.Array.is_ready``), so its keyframe cadence depends on how long each
-frame took; with the SGM estimate in each frame it made keyframes at
-frames 0, 3, 7, 10, 14 (5), without it (plain STEREO, x64 on) at 0, 3, 7,
-12, as the port does in both (its readiness is a frame-count model,
-``local_mapping.Pending``).  Both meet the reference test's floors (ATE is
+The SGBM upgrade also runs through the JAX package's ``Slam`` (as its own
+suite runs it, x64 on), on the first ``N_FRAMES`` = 11 frames: what the
+assertions need (every frame tracked, the keyframe counts within one, a
+trajectory of ten 0.4 m steps against the ground truth's length), with
+the two packages' keyframe cadences still apart.  Held equal: the frames
+tracked (11/11) and the sensor type (RGBD).  The keyframe count is held
+within one: the JAX package's back-end readiness is its real asynchronous
+dispatch (``jax.Array.is_ready``), so its keyframe cadence depends on how
+long each frame took; with the SGM estimate in each frame it made
+keyframes at frames 0, 3, 7, 10 (4; 0, 3, 7, 10, 14 over 16 frames),
+without it (plain STEREO, x64 on) at 0, 3, 7, 12, as the port does in
+both (its readiness is a frame-count model, ``local_mapping.Pending``): 3
+keyframes over these 11 frames.  Both meet the reference test's floors (ATE is
 not among them; the metric-scale floor is the trajectory length within 25
 % of the ground truth's, with no alignment).
 
@@ -43,7 +47,7 @@ from pyslam_tpu_torch.slam.camera import PinholeCamera
 from pyslam_tpu_torch.slam.slam import Slam
 from tests.torch_parity import shared_jax_compile_cache  # noqa: F401  (module fixture)
 
-N_FRAMES = 16
+N_FRAMES = 11
 
 
 def _cam(cls, ds):
