@@ -268,7 +268,10 @@ Phases (one line each, and any failure exits non-zero):
         ATE under ATE_MAX, the mean PSNR of each keyframe's view after its
         integration at least GS_PSNR_MIN (the views at the session's end
         reported), a save / load within GS_SAVE_TOL; the JAX package's
-        held-out configuration (96x128) at least GS_PSNR_MIN; ms per keyframe
+        held-out configuration (96x128) at least GS_PSNR_MIN; the drift
+        witness (11 keyframes of the stream at a quarter of its size into a
+        volume at its defaults): the views' mean PSNR at the session's end
+        within GS_DRIFT_MARGIN_DB of the JAX package's; ms per keyframe
         integration, one rasterize's and one optimiser step's launches and
         kernel ms, the tile-score pass against its byte bound, the peak
         device memory; one full-size rasterize card against CPU;
@@ -557,6 +560,17 @@ GS_DEPTH_TRUNC = 100.0
 GS_PSNR_MIN = 16.0
 GS_SAVE_TOL = 1e-5
 GS_TIE_TOL = 1e-4
+# 19d's drift witness (tests/torch_gs_drift.py): GS_DRIFT_KEYFRAMES of phase
+# 9's stream at their ground-truth poses, at 1/GS_DRIFT_SCALE of its size,
+# into a volume at its defaults.  The mean PSNR of the views at the
+# session's end is the JAX package's GS_DRIFT_JAX_END_DB on the CPU (x64
+# off); four runs with every depth moved by one float32 rounding step read
+# 14.1454-14.1686, and the port reads 14.1321 on the CPU.  The card's mean
+# is held within GS_DRIFT_MARGIN_DB of it, either side.
+GS_DRIFT_KEYFRAMES = [0, 2, 4, 6, 8, 10, 11, 13, 15, 17, 19]
+GS_DRIFT_SCALE = 4
+GS_DRIFT_JAX_END_DB = 14.1131
+GS_DRIFT_MARGIN_DB = 0.3
 DENSE_ENTRY_FRAMES = 20
 
 
@@ -3019,10 +3033,11 @@ def semantic_phase(dev, frames, cam, ds, voxels_per_frame=None):
                      if p >= 0 and slam.map.points.valid[p] and int(p) not in sem.point_scores]
     dropped, valid = keyframe_drops(integ.volume, integ._depth_provider, cam, frames_b[-1][0],
                                     frames_b[-1][1], ds.poses[n - 1])
+    # the ceiling from the frames this session ran (phase 7 counts all its frames)
     if voxels_per_frame is None:
         voxels_per_frame = frame_voxels(integ.volume, integ._depth_provider, cam, frames_b,
                                         ds.poses[:n])
-    table = check_table(integ.volume.table, integ.volume.num_integrated, voxels_per_frame,
+    table = check_table(integ.volume.table, integ.volume.num_integrated, voxels_per_frame[:n],
                         dropped / max(valid, 1))
     sb.update(unscored_points=len(unscored), integrated=integ.volume.num_integrated,
               voxels=integ.volume.num_voxels(), load=table["load"],
@@ -3495,6 +3510,57 @@ def gs_heldout(dev):
     return out
 
 
+def gs_drift(dev):
+    """Phase 19d: the drift witness of ``python -m tests.torch_gs_drift`` on
+    the card: GS_DRIFT_KEYFRAMES of phase 9's stream at their ground-truth
+    poses, rendered at 1/GS_DRIFT_SCALE of its size, into a volume at its
+    defaults (depth truncated at GS_DEPTH_TRUNC), driven directly; each
+    view's PSNR after its own integration and at the session's end, the
+    end's mean held within GS_DRIFT_MARGIN_DB of the JAX package's on the
+    CPU."""
+    import torch
+
+    from pyslam_tpu_torch.dense.gaussian_splatting_integrator import GaussianSplattingVolume
+    from pyslam_tpu_torch.io.dataset_types import SensorType
+    from pyslam_tpu_torch.io.synthetic import SyntheticDataset, SyntheticWorld
+
+    t0 = time.perf_counter()
+    extent = max(60.0, (N_FRAMES * 0.8 + 30.0) / 1.4)
+    world = SyntheticWorld(n_points=16000, extent=extent, depth_range=(4.0, 80.0))
+    ds = SyntheticDataset(num_frames=N_FRAMES, h=H // GS_DRIFT_SCALE, w=W // GS_DRIFT_SCALE,
+                          fx=FX / GS_DRIFT_SCALE, baseline=BASELINE_M, trajectory="line",
+                          step=0.8, sensor_type=SensorType.RGBD, world=world)
+    K = np.array([[ds.fx, 0, ds.cx], [0, ds.fy, ds.cy], [0, 0, 1]], np.float64)
+    vol = GaussianSplattingVolume(depth_trunc=GS_DEPTH_TRUNC, device=dev)
+
+    def view_psnr(i):
+        rh, rw = vol.render_hw
+        color = vol.render(np.linalg.inv(ds.poses[i]), K)[0][..., 0]
+        return psnr(color, np.asarray(ds.getImage(i), np.float32)[:rh, :rw] / 255.0)
+
+    fitted = []
+    for i in GS_DRIFT_KEYFRAMES:
+        vol.integrate(ds.getDepth(i), ds.getImage(i), ds.poses[i], K)
+        fitted.append(view_psnr(i))
+    end = [view_psnr(i) for i in GS_DRIFT_KEYFRAMES]
+    out = dict(raster=list(vol.render_hw), gaussians=vol.num_used, fitted_psnr_db=fitted,
+               end_psnr_db=end, mean_fitted_db=float(np.mean(fitted)),
+               mean_end_db=float(np.mean(end)), jax_cpu_mean_end_db=GS_DRIFT_JAX_END_DB,
+               seconds=time.perf_counter() - t0)
+    log(f"[gs] drift witness ({len(GS_DRIFT_KEYFRAMES)} keyframes of phase 9's stream at "
+        f"1/{GS_DRIFT_SCALE} size, raster {out['raster'][0]}x{out['raster'][1]}, the volume's "
+        f"defaults): {vol.num_used} gaussians; PSNR after each keyframe's integration "
+        + ", ".join(f"{p:.2f}" for p in fitted) + " dB, at the session's end "
+        + ", ".join(f"{p:.2f}" for p in end) + f" dB (means {out['mean_fitted_db']:.2f}, "
+        f"{out['mean_end_db']:.2f}; the JAX package's end on the CPU {GS_DRIFT_JAX_END_DB}, "
+        f"margin {GS_DRIFT_MARGIN_DB}), {out['seconds']:.1f} s")
+    assert vol.device.type == "cuda", out
+    assert abs(out["mean_end_db"] - GS_DRIFT_JAX_END_DB) <= GS_DRIFT_MARGIN_DB, out
+    del vol
+    torch.cuda.empty_cache()
+    return out
+
+
 def dense_entry_phase(dev):
     """Phase 19e: main_map_dense_reconstruction on the card."""
     import tempfile
@@ -3530,6 +3596,7 @@ def reconstruction_phase(dev, rgbd_frames, cam_rgbd, ds_rgbd):
     out.update(scene_phase(dev))
     out["gs"] = gs_phase(dev, rgbd_frames[:GS_FRAMES], cam_rgbd, ds_rgbd)
     out["gs_heldout"] = gs_heldout(dev)
+    out["gs_drift"] = gs_drift(dev)
     out["dense_entry"] = dense_entry_phase(dev)
     return out
 

@@ -76,6 +76,11 @@ def project_gaussians(g: Gaussians, Tcw: torch.Tensor, K: torch.Tensor):
     J = torch.stack([torch.stack([fx / z, zero, -fx * x_ / (z * z)], -1),
                      torch.stack([zero, fy / z, -fy * y_ / (z * z)], -1)], 1)   # (N, 2, 3)
     cov2d = J @ cov3d_c @ J.transpose(1, 2)
+    ok = (pc[:, 2] > 0.05) & g.valid
+    # behind the camera z is clamped and the covariance can overflow; such a
+    # gaussian is never composited, and a finite stand-in keeps its gradient
+    # at zero, as the reference's is, where inf - inf would make it NaN
+    cov2d = torch.where(ok[:, None, None], cov2d, torch.zeros_like(cov2d))
     cov2d = cov2d + 0.3 * torch.eye(2, dtype=cov2d.dtype, device=cov2d.device)
 
     det = torch.clamp(cov2d[:, 0, 0] * cov2d[:, 1, 1] - cov2d[:, 0, 1] * cov2d[:, 1, 0],
@@ -84,7 +89,6 @@ def project_gaussians(g: Gaussians, Tcw: torch.Tensor, K: torch.Tensor):
     radius = 3.0 * torch.sqrt(torch.clamp(torch.maximum(cov2d[:, 0, 0], cov2d[:, 1, 1]),
                                           min=1e-9))
     alpha = torch.sigmoid(g.opacity_logit)
-    ok = (pc[:, 2] > 0.05) & g.valid
     return mean2d, conic, z, radius, alpha, ok
 
 
@@ -122,12 +126,13 @@ def tile_topk(score: torch.Tensor, k: int) -> torch.Tensor:
     return torch.gather(idx, 1, order)
 
 
-def select_tiles(cyx, mean2d, radius, ok, k: int, chunk: int = SELECT_CHUNK):
+def select_tiles(cyx, mean2d, radius, ok, k: int):
     """Each tile's top-k gaussians (T, k) and whether each holds a valid
-    one (T, k), without autograd, ``chunk`` score elements at a time."""
+    one (T, k), without autograd, ``SELECT_CHUNK`` score elements at a
+    time."""
     with torch.no_grad():
         mean2d, radius = mean2d.detach(), radius.detach()
-        step = max(1, chunk // max(mean2d.shape[0], 1))
+        step = max(1, SELECT_CHUNK // max(mean2d.shape[0], 1))
         idx, sel_ok = [], []
         for s in range(0, cyx.shape[0], step):
             score = tile_scores(cyx[s:s + step], mean2d, radius, ok)

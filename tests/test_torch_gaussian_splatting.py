@@ -9,7 +9,11 @@ the JAX package run with x64 off.
    within ``TOL`` = 1e-5 of their largest magnitude, each tile's selected
    indices identical and in the same order (``jax.lax.top_k``'s order, then
    the stable depth sort); ``render_loss`` and its gradients within
-   ``GRAD_TOL`` = 1e-4 of their largest magnitude; 3 ``optimize_gaussians``
+   ``GRAD_TOL`` = 1e-4 of their largest magnitude (and a case with a tenth
+   of them behind the camera, where the clamped depth overflows the 2D
+   covariance: the gradients finite, and zero there as the reference's;
+   a NaN there would make Adam drop those gaussians for the rest of a
+   session); 3 ``optimize_gaussians``
    steps: the losses and every parameter within ``GRAD_TOL``.
 3. The volume on two keyframes of the 64x96 RGBD line at capacity 512 (the
    first with depth on the left half only): the
@@ -28,6 +32,8 @@ the JAX package run with x64 off.
 4. ``Slam.load_system_state`` accepts a state saved with a Gaussian-
    splatting integrator attached.
 """
+
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -92,13 +98,17 @@ def test_rasterize_depth_ordering():
 
 
 # ------------------------------------------------------------ 2. parity
-def _random_gaussians(seed, n=200, ties=False):
+def _random_gaussians(seed, n=200, ties=False, behind=False):
     r = rng(seed)
     d = dict(means=np.c_[r.uniform(-1, 1, (n, 2)), r.uniform(1.5, 4, (n, 1))],
              log_scales=r.uniform(-3.0, -1.5, (n, 3)), quats=r.normal(size=(n, 4)),
              opacity_logit=r.normal(size=n), colors=r.uniform(0, 1, (n, 1)))
     d = {k: v.astype(np.float32) for k, v in d.items()}
     d["valid"] = r.uniform(size=n) < 0.9
+    if behind:
+        # a tenth of them behind the camera: z clamped to 1e-6, where the
+        # 2D covariance overflows (the reference's gradient there is zero)
+        d["means"][::10, 2] *= -1.0
     if ties:
         # six valid gaussians (every tile selects among -inf ties), two
         # pairs of them at the same place (equal scores and depths)
@@ -115,9 +125,11 @@ def _both(d):
             gs.Gaussians(**{k: torch.from_numpy(v.copy()) for k, v in d.items()}))
 
 
+@functools.partial(jax.jit, static_argnames=("h", "w", "k"))
 def _jax_tiles(g, Tcw, K, h, w, k):
     """Each tile's selection and depth order as the reference's
-    ``rasterize`` computes them (``pyslam_tpu/ops/gaussian_splatting.py``)."""
+    ``rasterize`` computes them (``pyslam_tpu/ops/gaussian_splatting.py``),
+    compiled as one graph as ``rasterize`` is."""
     mean2d, _, depth, radius, _, ok = jgs.project_gaussians(g, Tcw, K)
     ty = (jnp.arange(h // gs.TILE) + 0.5) * gs.TILE
     tx = (jnp.arange(w // gs.TILE) + 0.5) * gs.TILE
@@ -129,8 +141,7 @@ def _jax_tiles(g, Tcw, K, h, w, k):
     _, idx = jax.lax.top_k(score, k)
     sel_ok = jnp.take_along_axis(score, idx, axis=1) > -1e30
     order = jnp.argsort(jnp.where(sel_ok, depth[idx], jnp.inf), axis=1)
-    return (np.asarray(jnp.take_along_axis(idx, order, 1)),
-            np.asarray(jnp.take_along_axis(sel_ok, order, 1)))
+    return jnp.take_along_axis(idx, order, 1), jnp.take_along_axis(sel_ok, order, 1)
 
 
 TCW = np.eye(4, dtype=np.float32)
@@ -142,7 +153,8 @@ def test_rasterize_against_jax(ties):
     jg, tg = _both(_random_gaussians(0, ties=ties))
     with jax.enable_x64(False):
         want = jgs.rasterize(jg, jnp.asarray(TCW), jnp.asarray(K64), 64, 64, 8)
-        want_idx, want_ok = _jax_tiles(jg, jnp.asarray(TCW), jnp.asarray(K64), 64, 64, 8)
+        want_idx, want_ok = map(np.asarray, _jax_tiles(jg, jnp.asarray(TCW), jnp.asarray(K64),
+                                                       64, 64, 8))
     *got, idx, sel_ok = gs.rasterize(tg, torch.from_numpy(TCW), torch.from_numpy(K64), 64, 64,
                                      8, return_indices=True)
     np.testing.assert_array_equal(sel_ok.numpy(), want_ok)
@@ -159,8 +171,9 @@ def _targets(seed, b=1):
             r.uniform(1.0, 4.0, (b, 64, 64)).astype(np.float32))
 
 
-def test_render_loss_gradients():
-    d = _random_gaussians(1)
+@pytest.mark.parametrize("behind", [False, True])
+def test_render_loss_gradients(behind):
+    d = _random_gaussians(1, behind=behind)
     jg, tg = _both(d)
     tgt, td = _targets(2)
     with jax.enable_x64(False):
@@ -168,7 +181,7 @@ def test_render_loss_gradients():
             return jgs.render_loss(jgs._combine(tr, {"valid": jg.valid}), jnp.asarray(TCW),
                                    jnp.asarray(K64), tgt[0], td[0], 64, 64, 8)
 
-        want_l, want_g = jax.value_and_grad(loss)(jgs._trainable(jg))
+        want_l, want_g = jax.jit(jax.value_and_grad(loss))(jgs._trainable(jg))
     params = {k: v.requires_grad_(True) for k, v in gs.trainable(tg).items()}
     got_l = gs.render_loss(tg, torch.from_numpy(TCW), torch.from_numpy(K64),
                            torch.from_numpy(tgt[0]), torch.from_numpy(td[0]), 64, 64, 8)
@@ -176,7 +189,11 @@ def test_render_loss_gradients():
     assert abs(float(got_l.detach()) - float(want_l)) <= GRAD_TOL * abs(float(want_l))
     for k, p in params.items():
         assert float(np.abs(np.asarray(want_g[k])).max()) > 0, k
+        assert torch.isfinite(p.grad).all(), k
         assert rel_err(p.grad, want_g[k]) <= GRAD_TOL, (k, rel_err(p.grad, want_g[k]))
+    if behind:
+        far = np.asarray(d["means"][:, 2] < 0)
+        assert far.sum() == 20 and not np.asarray(want_g["means"])[far].any()
 
 
 def test_optimize_three_steps():

@@ -24,8 +24,9 @@ entry point against the JAX package, the JAX package run with x64 off.
    ``TOL`` = 1e-4 of their largest magnitude, the same number of points.
 3. ``main_scene_from_views --device cpu --views 3`` writes an ``.npz`` that
    loads, with the run's poses and points; ``main_map_dense_reconstruction
-   --device cpu --frames 6`` builds a map, replays its keyframes into the
-   TSDF and saves a non-empty cloud.
+   --device cpu --frames 4`` builds a map, replays its keyframes into the
+   TSDF and saves a non-empty cloud (four frames: two keyframes to replay
+   and 46237 cloud points, where the floor is 1000).
 """
 
 from types import SimpleNamespace
@@ -213,7 +214,7 @@ def test_main_scene_from_views(tmp_path):
 
 def test_main_map_dense_reconstruction(tmp_path):
     path = str(tmp_path / "cloud.npz")
-    pts, cols = main_map_dense_reconstruction.run(["--device", "cpu", "--frames", "6",
+    pts, cols = main_map_dense_reconstruction.run(["--device", "cpu", "--frames", "4",
                                                    "--save_cloud", path])
     assert len(pts) > 1000 and np.isfinite(pts).all() and cols.shape == pts.shape
     with np.load(path) as z:

@@ -11,7 +11,9 @@ the descriptors of the weights trained on synthetic corners match few of
 this world's points, ROADMAP.md section 3).  The port is held to that
 result: the same frames tracked, resets and keyframes, and its ATE within
 1e-3 m of the reference's (measured: equal to the printed digits).  The
-session's descriptor gates and the vocabulary's flag are restored
+reference runs under ``reference_polls_like_the_port``, so that its
+back-end's results are ready by the port's CPU rule and not by the host's
+load.  The session's descriptor gates and the vocabulary's flag are restored
 afterwards in both packages.
 """
 
@@ -32,6 +34,7 @@ from pyslam_tpu_torch.io.synthetic import SyntheticDataset
 from pyslam_tpu_torch.slam.camera import PinholeCamera
 from pyslam_tpu_torch.slam.slam import Slam
 from tests import torch_parity  # noqa: F401  (one small torch thread pool per worker)
+from tests.torch_parity import reference_polls_like_the_port
 from tests.torch_parity import shared_jax_compile_cache  # noqa: F401  (module fixture)
 
 N_FRAMES = 20
@@ -74,7 +77,7 @@ def runs():
     try:
         kw = dict(num_frames=N_FRAMES, trajectory="line", step=0.4)
         jds = JaxSyntheticDataset(sensor_type=JaxSensorType.STEREO, **kw)
-        with jax.enable_x64(False):
+        with jax.enable_x64(False), reference_polls_like_the_port():
             ref = _run(JaxSlam(_cam(JaxCamera, jds), "SUPERPOINT",
                                loop_detector_config="DBOW3_INDEPENDENT",
                                sensor_type=JaxSensorType.STEREO), jds, jax_eval_ate)

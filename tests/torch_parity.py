@@ -143,6 +143,76 @@ def rel_err(got, want) -> float:
 
 
 @contextlib.contextmanager
+def reference_polls_like_the_port():
+    """Make the JAX package's local mapping see its device results ready by
+    the port's CPU rule (``pyslam_tpu_torch.slam.local_mapping.Pending``)
+    instead of by ``jax.Array.is_ready``, whose answer follows the host's
+    load, so that the reference's keyframe cadence and map do not move with
+    the busy processes beside it.  A triangulation result is ready once an
+    end-of-frame back-end step has run since its dispatch, a fuse result
+    and an LBA chunk from the next back-end call on; a result taken as ready
+    is then awaited, so it is the value the device computed."""
+    from pyslam_tpu.slam.local_mapping import LocalMapping
+
+    clock = {"calls": 0, "frames": 0}
+    orig = {name: getattr(LocalMapping, name) for name in (
+        "step_async", "_tri_dispatch", "_fuse_dispatch", "_lba_dispatch", "_lba_poll",
+        "_advance_slice")}
+
+    def tick():
+        return clock["calls"], clock["frames"]
+
+    def stamped(name):
+        def dispatch(self, *a, **kw):
+            job = orig[name](self, *a, **kw)
+            if job is not None:
+                job["tick"] = tick()
+            return job
+        return dispatch
+
+    def step_async(self, start_new_jobs=True):
+        clock["calls"] += 1
+        clock["frames"] += int(start_new_jobs)
+        return orig["step_async"](self, start_new_jobs)
+
+    def lba_dispatch(self, *a, **kw):
+        orig["_lba_dispatch"](self, *a, **kw)
+        if self._lba is not None:
+            self._lba["tick"] = tick()
+
+    def lba_poll(self, block):
+        if not block and self._lba["tick"][0] >= clock["calls"]:
+            return False
+        lba = self._lba
+        done = orig["_lba_poll"](self, True)
+        if self._lba is lba:   # the next chunk was dispatched
+            lba["tick"] = tick()
+        return done
+
+    def advance_slice(self, block=False):
+        if not block and self._job_stage == 2:
+            if self._tri_job["tick"][1] >= clock["frames"]:
+                return False
+            block = True
+        elif not block and self._job_stage == 4:
+            if self._fuse_job["tick"][0] >= clock["calls"]:
+                return False
+            block = True
+        return orig["_advance_slice"](self, block)
+
+    patched = dict(step_async=step_async, _tri_dispatch=stamped("_tri_dispatch"),
+                   _fuse_dispatch=stamped("_fuse_dispatch"), _lba_dispatch=lba_dispatch,
+                   _lba_poll=lba_poll, _advance_slice=advance_slice)
+    for name, fn in patched.items():
+        setattr(LocalMapping, name, fn)
+    try:
+        yield
+    finally:
+        for name, fn in orig.items():
+            setattr(LocalMapping, name, fn)
+
+
+@contextlib.contextmanager
 def compiled_flax_init():
     """Build a JAX-package extractor with its flax ``init`` (and the
     ``apply`` calls of its constructor) compiled by ``jax.jit`` instead of
