@@ -72,6 +72,9 @@ class Parameters:
     kKeyframeCullingRedundantObsRatio = 0.9 # cull KF if 90% points redundantly seen
     kKeyframeCullingMinNumPoints = 3
     kMapPointCullingMinFoundRatio = 0.25    # found/visible acceptance for new points
+    kUseLargeWindowBA = False               # periodic large-window BA (ref :222)
+    kEveryNumFramesLargeWindowBA = 10       # keyframes between large BAs (ref :225)
+    kLargeBAWindowSize = 20
     kLocalMappingNumNeighborKeyFramesStereo = 10    # triangulation neighbors (ref :191)
     kLocalMappingNumNeighborKeyFramesMonocular = 20  # ref :194
     kMinNumOfCovisiblePointsForCreatingConnection = 15  # ref :200

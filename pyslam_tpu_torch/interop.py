@@ -35,6 +35,10 @@ module's name where the port keeps an official layout, an ``Embed``'s
 ``embedding`` an ``nn.Embedding`` weight; batch-norm statistics,
 ``rotary_w``, ``gem_p`` and the other raw parameters (position
 embeddings, class tokens, CLIP's projections) keep their values.
+``superpoint_flat``, ``lightglue_flat`` and ``cosplace_flat`` are the
+inverses of the first, second and fourth: a port ``state_dict`` (the
+trainers' output) as the JAX package's flat ``params/...`` names, so a
+checkpoint the port trains loads through both packages' ``checkpoint=``.
 ``segformer_npz_state_dict`` reads the JAX package's SegFormer ``.npz``,
 whose values follow the sorted order of its keys, leaf by leaf of the
 flax tree.  ``bundled_checkpoint``
@@ -150,6 +154,64 @@ def resnet_state_dict(flat: dict) -> dict[str, torch.Tensor]:
 def cosplace_state_dict(flat: dict) -> dict[str, torch.Tensor]:
     """``GeoLocalizationNet`` weights: ``backbone``, ``gem_p`` and ``fc``."""
     return _convert(flat, _resnet_module)
+
+
+def _flat(state: dict, flax_path, vector_weight: str = "weight") -> dict[str, np.ndarray]:
+    """The inverse of ``_convert``: ``params/...`` leaves (float32 numpy)
+    from a port ``state_dict``.  ``flax_path`` maps a torch module's dotted
+    name to its flax path (tuple of names); a 4-d ``weight`` becomes a conv
+    ``kernel`` (kh, kw, I, O), a 2-d one a Dense ``kernel`` (in, out), a
+    1-d one ``vector_weight`` (``scale`` for a LayerNorm, ``weight`` for
+    the batch norms); other leaves keep their names and values."""
+    out = {}
+    for key, v in state.items():
+        mod, _, leaf = key.rpartition(".")
+        a = v.detach().cpu().numpy().astype(np.float32)
+        if leaf == "weight":
+            if a.ndim == 4:
+                leaf, a = "kernel", a.transpose(2, 3, 1, 0)
+            elif a.ndim == 2:
+                leaf, a = "kernel", a.T
+            else:
+                leaf = vector_weight
+        out["/".join(("params",) + flax_path(mod) + (leaf,))] = np.ascontiguousarray(a)
+    return out
+
+
+def superpoint_flat(state: dict) -> dict[str, np.ndarray]:
+    """Flax ``Conv_0..Conv_11`` leaves of a ``SuperPointNet`` state_dict."""
+    return _flat(state, lambda m: (f"Conv_{SUPERPOINT_CONVS.index(m)}",))
+
+
+def lightglue_flat(state: dict) -> dict[str, np.ndarray]:
+    """Flax leaves of a ``LightGlueNet`` state_dict (the same module names;
+    the LayerNorms' ``scale``)."""
+    return _flat(state, lambda m: tuple(m.split(".")) if m else (), vector_weight="scale")
+
+
+def _resnet_path(mod: str) -> tuple:
+    """Inverse of ``_resnet_module``: ``layer2.0`` -> ``layer2_0``,
+    ``downsample.0`` / ``.1`` -> ``downsample_conv`` / ``downsample_bn``."""
+    parts, out = mod.split(".") if mod else [], []
+    i = 0
+    while i < len(parts):
+        part = parts[i]
+        if part.startswith("layer") and i + 1 < len(parts) and parts[i + 1].isdigit():
+            out.append(f"{part}_{parts[i + 1]}")
+            i += 2
+        elif part == "downsample":
+            out.append({"0": "downsample_conv", "1": "downsample_bn"}[parts[i + 1]])
+            i += 2
+        else:
+            out.append(part)
+            i += 1
+    return tuple(out)
+
+
+def cosplace_flat(state: dict) -> dict[str, np.ndarray]:
+    """Flax leaves of a ``GeoLocalizationNet`` state_dict (``backbone``,
+    ``gem_p``, ``fc``; the batch norms' four tensors by their own names)."""
+    return _flat(state, _resnet_path)
 
 
 def _renamed(flat: dict, names: dict) -> dict[str, torch.Tensor]:

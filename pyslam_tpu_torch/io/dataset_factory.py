@@ -1,7 +1,7 @@
 """Dataset factory dispatch (host copy of
 ``pyslam_tpu/io/dataset_factory.py``; reference: pySLAM
-``io/dataset_factory.py:78``).  The ROS1 / ROS2 bag and MCAP readers are
-not ported: those types raise ``NotImplementedError``."""
+``io/dataset_factory.py:78``), the ROS1 / ROS2 bag and MCAP readers
+included (``io/ros1bag.py``, ``io/ros2bag.py``, ``io/mcap_io.py``)."""
 
 from __future__ import annotations
 
@@ -23,9 +23,6 @@ from pyslam_tpu_torch.io.dataset import (
     VideoDataset,
 )
 from pyslam_tpu_torch.io.dataset_types import DatasetType, SensorType
-
-BAG_READERS_ITEM = "ROADMAP.md item 4 (io/colmap_io.py, ros1bag.py, ros2bag.py and mcap_io.py)"
-
 
 def dataset_factory(config) -> DatasetBase:
     """Build a dataset from a config object/dict with the reference's fields:
@@ -84,9 +81,32 @@ def dataset_factory(config) -> DatasetBase:
             d.get("camera_id", 0), d.get("num_frames", 10 ** 9),
             d.get("fps", 30.0), sensor,
         )
-    if ds_type in (DatasetType.ROS1BAG, DatasetType.ROS2BAG, DatasetType.MCAP):
-        raise NotImplementedError(f"the {ds_type.name} reader is not ported yet: "
-                                  f"{BAG_READERS_ITEM}")
+    if ds_type == DatasetType.ROS1BAG:
+        from pyslam_tpu_torch.io.ros1bag import Ros1BagDataset
+
+        return Ros1BagDataset(
+            base, d["topic"], right_topic=d.get("right_topic"),
+            depth_topic=d.get("depth_topic"),
+            max_dt=d.get("sync_tol_ms", 50.0) / 1000.0,
+        )
+    if ds_type == DatasetType.ROS2BAG:
+        from pyslam_tpu_torch.io.ros2bag import Ros2BagDataset
+
+        return Ros2BagDataset(
+            base, d["topic"], d.get("right_topic"), d.get("depth_topic"),
+            sensor_type=sensor if "sensor_type" in d else None,
+            sync_tol_ms=d.get("sync_tol_ms", 20.0),
+            depth_factor=d.get("depth_factor", 1000.0),
+        )
+    if ds_type == DatasetType.MCAP:
+        from pyslam_tpu_torch.io.mcap_io import McapDataset
+
+        return McapDataset(
+            base, d["topic"], d.get("right_topic"), d.get("depth_topic"),
+            sensor_type=sensor if "sensor_type" in d else None,
+            sync_tol_ms=d.get("sync_tol_ms", 20.0),
+            depth_factor=d.get("depth_factor", 1000.0),
+        )
     if ds_type == DatasetType.SYNTHETIC:
         from pyslam_tpu_torch.io.synthetic import SyntheticDataset
 

@@ -21,8 +21,10 @@ right image: the synthetic demo stream renders it for ``--sensor mono``
 monocular dataset without one is refused.  ``--semantics`` attaches the
 semantic mapper (``semantic_mapping_factory(slam.map)``: the weight-free
 intensity bands, as the reference's default), which labels each keyframe
-and its map points.  ``--viewer`` is refused with the ROADMAP.md item it
-waits on.
+and its map points.  ``--viewer`` serves the live 3D viewer
+(``viz/live_viewer.py``) at ``http://127.0.0.1:<--viewer_port>``; its
+pause, step, save, GBA, reset and quit requests drive this loop between
+frames, as the reference's pangolin controls drive its ``main_slam.py``.
 """
 
 from __future__ import annotations
@@ -49,7 +51,6 @@ from pyslam_tpu_torch.utils.logging import Printer
 from pyslam_tpu_torch.utils.timer import TimerFps
 
 SENSORS = {"mono": SensorType.MONOCULAR, "stereo": SensorType.STEREO, "rgbd": SensorType.RGBD}
-VIEWER_ITEM = "ROADMAP.md section 1 item 4.2 (viz/: html_viewer, live_viewer, viewer3d)"
 # latency percentiles skip the first frames (initialisation, first keyframes)
 LATENCY_SKIP = 10
 
@@ -87,7 +88,9 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--save_trajectory", default=None)
     ap.add_argument("--trajectory_format", default="tum", choices=["tum", "kitti", "euroc"])
     ap.add_argument("--headless", action="store_true", default=True)
-    ap.add_argument("--viewer", action="store_true", help=f"not ported: {VIEWER_ITEM}")
+    ap.add_argument("--viewer", action="store_true",
+                    help="serve the live interactive 3D viewer (browser orbit renderer + "
+                         "pause/step/save/GBA/reset/quit controls consumed by this loop)")
     ap.add_argument("--viewer_port", type=int, default=8090)
     ap.add_argument("--profile", default=None, metavar="LOGDIR",
                     help="capture a torch.profiler trace into LOGDIR/trace.json "
@@ -101,8 +104,6 @@ def _parser() -> argparse.ArgumentParser:
 def main(argv=None) -> int:
     ap = _parser()
     args = ap.parse_args(argv)
-    if args.viewer:
-        ap.error(f"--viewer is not ported yet: {VIEWER_ITEM}")
     device = check_device(ap, args.device)
     stereo_estimator = False
     if args.depth_estimator:
@@ -198,6 +199,12 @@ def main(argv=None) -> int:
         slam.set_semantic_mapping(semantic_mapping)
     if args.load_state:
         slam.load_system_state(args.load_state)
+    viewer = None
+    if args.viewer:
+        from pyslam_tpu_torch.viz.live_viewer import LiveViewer3D
+
+        viewer = LiveViewer3D(port=args.viewer_port)
+        Printer.cyan(f"live viewer: {viewer.url}")
 
     # ---------------------------------------------------------------- loop
     timer = TimerFps("frame")
@@ -243,6 +250,8 @@ def main(argv=None) -> int:
             Printer.green(f"frame {i}/{len(dataset)}: state={slam.state.name} "
                           f"kfs={slam.map.num_keyframes()} pts={slam.map.num_points()} "
                           f"fps={timer.fps:.1f}")
+        if viewer is not None and not _drive_viewer(viewer, slam, args, i, len(dataset), timer):
+            break
 
     if profile_ctx is not None:
         profile_ctx.__exit__(None, None, None)
@@ -298,7 +307,43 @@ def main(argv=None) -> int:
     if integrator is not None:
         pts, _ = integrator.get_point_cloud()
         Printer.blue(f"dense map: {len(pts)} surface voxels")
+    if viewer is not None:
+        import sys
+
+        viewer.update(slam, status="finished — press quit to exit", force=True)
+        if sys.stdin.isatty():   # interactive: keep the final map browsable
+            Printer.cyan(f"viewer live at {viewer.url} (quit to exit)")
+            while not viewer.should_quit():
+                time.sleep(0.2)
+        viewer.close()
     return 0
+
+
+def _drive_viewer(viewer, slam, args, i: int, n: int, timer) -> bool:
+    """Publish frame ``i`` to the live viewer and serve its requests (the
+    reference's main_slam.py:449-478): block while paused, save the state,
+    run a global BA, reset.  False once quit is requested."""
+    viewer.update(slam, status=(f"frame {i}/{n} · {slam.state.name} · "
+                                f"{slam.map.num_keyframes()} kfs · "
+                                f"{slam.map.num_points()} pts · {timer.fps:.1f} fps"))
+    viewer.wait_if_paused()
+    for req in viewer.take_requests():
+        if req == "save":
+            out = args.save_state or "./saved_state"
+            slam.save_system_state(out)
+            Printer.green(f"[viewer] state saved -> {out}")
+        elif req == "gba":
+            Printer.cyan("[viewer] running global BA ...")
+            slam.bundle_adjust()
+            viewer.update(slam, force=True)
+        elif req == "reset":
+            Printer.orange("[viewer] resetting SLAM system")
+            slam.reset()
+            viewer.update(slam, force=True)
+    if viewer.should_quit():
+        Printer.orange("[viewer] quit requested")
+        return False
+    return True
 
 
 if __name__ == "__main__":

@@ -103,10 +103,12 @@ class LightGlueNet(nn.Module):
         self.matchability = nn.Linear(dim, 1)
         self.sim_scale = float(np.float32(1.0) / np.float32(dim ** 0.25))
 
-    def forward(self, desc0, xy0, m0, desc1, xy1, m1):
+    def forward(self, desc0, xy0, m0, desc1, xy1, m1, return_aux: bool = False):
         """(N, input_dim), (N, 2) normalised coordinates, (N,) mask, and
         the same for the other image -> (log-assignment scores (N, M), the
-        masked similarity)."""
+        masked similarity); with ``return_aux`` also the per-keypoint
+        matchability logits ``sig0`` (N,) and ``sig1`` (M,) (the training
+        loss needs them, LightGlue eq. 10)."""
         x0, x1 = self.input_proj(desc0), self.input_proj(desc1)
         th0, th1 = xy0 @ self.rotary_w, xy1 @ self.rotary_w
         for i in range(self.layers):
@@ -120,6 +122,8 @@ class LightGlueNet(nn.Module):
         z0 = torch.log_softmax(sim, dim=1)
         z1 = torch.log_softmax(sim, dim=0)
         scores = F.logsigmoid(sig0)[:, None] + F.logsigmoid(sig1)[None, :] + z0 + z1
+        if return_aux:
+            return scores, sim, sig0, sig1
         return scores, sim
 
 

@@ -6,7 +6,10 @@ names, block structure and the state-dict layout are torchvision's
 (``conv1``, ``bn1``, ``layer{1-4}.{b}.conv{1-3}`` / ``bn{1-3}`` /
 ``downsample.{0,1}``), so a torchvision checkpoint loads key for key
 (``torch_convert.resnet_from_torch`` drops only the head).  Batch norm is
-the inference form with the running statistics as buffers.
+the inference form with the running statistics as buffers;
+``trainable_statistics_`` turns them into parameters for training, as the
+JAX package holds them (its ``BN`` keeps all four tensors as params, so
+its CosPlace trainer's Adam steps the statistics with the weights).
 """
 
 from __future__ import annotations
@@ -36,6 +39,18 @@ class BN(nn.Module):
 
         return ((x - c(self.running_mean)) / torch.sqrt(c(self.running_var) + self.eps)
                 * c(self.weight) + c(self.bias))
+
+
+def trainable_statistics_(module: nn.Module) -> nn.Module:
+    """Turn the running statistics of every ``BN`` in ``module`` into
+    parameters (same names, same values, so the state dict keeps its keys);
+    the forward stays the inference form, with no batch statistics."""
+    for m in module.modules():
+        if isinstance(m, BN):
+            for name in ("running_mean", "running_var"):
+                value = m._buffers.pop(name)
+                m.register_parameter(name, nn.Parameter(value))
+    return module
 
 
 def _downsample(inplanes: int, out_ch: int, stride: int) -> nn.Sequential:

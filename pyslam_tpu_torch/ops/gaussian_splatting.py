@@ -16,9 +16,10 @@
   exclusive cumprod of the transmittance.
 - ``optimize_gaussians``: ``steps`` Adam updates (optax's ``adam``: b1 0.9,
   b2 0.999, eps 1e-8 outside the square root, the step count carried in
-  ``AdamState``) of the mean loss over a window of views, L1 colour plus
-  0.1 x L1 depth.  The leaves are updated in place, so the integrator's
-  inserts keep the moments.
+  ``AdamState``; ``ops/adam.py``, shared with the trainers) of the mean
+  loss over a window of views, L1 colour plus 0.1 x L1 depth.  The
+  leaves are updated in place, so the integrator's inserts keep the
+  moments.
 
 Plain PyTorch with autograd: the JAX package's rasterizer is XLA ops
 outside any Pallas kernel.  ``seed_from_depth`` stays host numpy.
@@ -26,11 +27,13 @@ outside any Pallas kernel.  ``seed_from_depth`` stays host numpy.
 
 from __future__ import annotations
 
-from dataclasses import dataclass, field
 from typing import NamedTuple
 
 import numpy as np
 import torch
+
+from pyslam_tpu_torch.ops import adam
+from pyslam_tpu_torch.ops.adam import AdamState
 
 TILE = 16
 TRAINABLE = ("means", "log_scales", "quats", "opacity_logit", "colors")
@@ -205,15 +208,6 @@ def render_loss(g: Gaussians, Tcw, K, target, target_depth, h, w, k, depth_weigh
     return loss
 
 
-@dataclass
-class AdamState:
-    """optax ``adam`` state: first and second moments of every trainable
-    leaf, and the step count."""
-    mu: dict = field(default_factory=dict)
-    nu: dict = field(default_factory=dict)
-    count: int = 0
-
-
 def trainable(g: Gaussians) -> dict:
     return {name: getattr(g, name) for name in TRAINABLE}
 
@@ -225,11 +219,9 @@ def optimize_gaussians(g: Gaussians, opt_state: AdamState | None, Tcws, Ks, targ
     zeros), one K for all.  The trainable leaves of ``g`` are updated in
     place.  Returns (g, opt_state, losses (steps,)), the loss before each
     update."""
-    b1, b2, eps = 0.9, 0.999, 1e-8
     params = trainable(g)
     if opt_state is None:
-        opt_state = AdamState({n: torch.zeros_like(p) for n, p in params.items()},
-                              {n: torch.zeros_like(p) for n, p in params.items()})
+        opt_state = adam.init_state(params)
     for p in params.values():
         p.requires_grad_(True)
     B = Tcws.shape[0]
@@ -243,15 +235,7 @@ def optimize_gaussians(g: Gaussians, opt_state: AdamState | None, Tcws, Ks, targ
             loss.backward()
             total = total + loss.detach()
         losses.append(total)
-        opt_state.count += 1
-        c1 = 1.0 - b1 ** opt_state.count
-        c2 = 1.0 - b2 ** opt_state.count
-        with torch.no_grad():
-            for n, p in params.items():
-                gr = p.grad
-                mu = opt_state.mu[n].mul_(b1).add_(gr, alpha=1.0 - b1)
-                nu = opt_state.nu[n].mul_(b2).add_(gr * gr, alpha=1.0 - b2)
-                p.sub_(lr * (mu / c1) / (torch.sqrt(nu / c2) + eps))
+        adam.adam_step_(params, {n: p.grad for n, p in params.items()}, opt_state, lr)
     for p in params.values():
         p.grad = None
         p.requires_grad_(False)

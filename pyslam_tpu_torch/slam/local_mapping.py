@@ -108,6 +108,8 @@ class LocalMapping:
         self._fuse_job: dict | None = None
         self._lba: dict | None = None
         self.lba_applied = 0
+        self._kf_count = 0            # keyframes handed off (large-BA cadence)
+        self._next_large_ba = 0       # the keyframe count that lets the next one in
         self.volumetric_integrator = None   # attached by Slam.set_volumetric_integrator
         self.loop_closing = None            # attached by Slam
         self.semantic_mapping = None        # attached by Slam.set_semantic_mapping
@@ -252,6 +254,19 @@ class LocalMapping:
             if self.volumetric_integrator is not None:
                 self.volumetric_integrator.add_keyframe(kf)
             self._job = None
+            # the periodic large-window BA (the reference's own thread every
+            # kEveryNumFramesLargeWindowBA keyframes) goes through the LBA
+            # slot and is polled like any chunk; a busy slot at the
+            # threshold defers it to the next idle hand-off, never skips it
+            self._kf_count += 1
+            if self._next_large_ba == 0:
+                self._next_large_ba = Parameters.kEveryNumFramesLargeWindowBA
+            if (Parameters.kUseLargeWindowBA and self._lba is None and not self.queue
+                    and self._kf_count >= self._next_large_ba
+                    and self.map.num_keyframes() > 4):
+                self._next_large_ba = self._kf_count + Parameters.kEveryNumFramesLargeWindowBA
+                with t.stage("large_ba_dispatch"):
+                    self._lba_dispatch(kf, window_size=Parameters.kLargeBAWindowSize)
             return True
         self._job_stage = s + 1
         return True
@@ -519,10 +534,12 @@ class LocalMapping:
         return (cam, pt_rows, kps_stack[cam, kp_arr].astype(np.float32),
                 ur_stack[cam, kp_arr].astype(np.float32), sig2.astype(np.float32))
 
-    def _lba_build(self, kf: KeyFrame):
-        """The BAProblem of kf's covisibility window (with the reference's
-        caps on cameras, points and observations), or None."""
-        window_kids = [kf.kid] + kf.ordered_covisibles(Parameters.kLocalBAWindowSize)
+    def _lba_build(self, kf: KeyFrame, window_size: int | None = None):
+        """The BAProblem of kf's covisibility window (``window_size``
+        neighbours, kLocalBAWindowSize by default; with the reference's caps
+        on cameras, points and observations), or None."""
+        window_kids = [kf.kid] + kf.ordered_covisibles(
+            Parameters.kLocalBAWindowSize if window_size is None else window_size)
         window_kids = [k for k in window_kids if k in self.map.keyframes]
         local_pids = self.map.get_local_map_points(window_kids)
         if len(local_pids) < 10:
@@ -573,11 +590,11 @@ class LocalMapping:
                 "fixed": fixed, "cam_idx": cam_idx, "pt_idx": pt_idx}
         return problem, meta
 
-    def _lba_dispatch(self, kf: KeyFrame):
+    def _lba_dispatch(self, kf: KeyFrame, window_size: int | None = None):
         """Dispatch the first LM chunk of the window's BA (never waits)."""
         # an interrupt stops further chunks, never the window's first one
         self.opt_abort_flag = False
-        built = self._lba_build(kf)
+        built = self._lba_build(kf, window_size)
         if built is None:
             return
         problem, meta = built

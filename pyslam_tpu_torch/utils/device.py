@@ -2,6 +2,8 @@
 
 from __future__ import annotations
 
+import contextlib
+
 import numpy as np
 import torch
 
@@ -22,3 +24,16 @@ def as_device_tensor(x, device: torch.device) -> torch.Tensor:
             raise ValueError(f"tensor on {x.device}, expected {device}")
         return x.to(torch.float32)
     return torch.as_tensor(np.asarray(x, dtype=np.float32), device=device)
+
+
+@contextlib.contextmanager
+def deterministic_cudnn():
+    """cuDNN restricted to its deterministic algorithms for the block (the
+    trainers: the same seed gives the same checkpoint on the same card),
+    then the previous setting again."""
+    saved = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = saved

@@ -197,7 +197,6 @@ def test_main_slam_evaluation(kitti, tmp_path):
 
 
 @pytest.mark.parametrize("args,item", [
-    (["--viewer"], "ROADMAP.md section 1 item 4.2"),
     (["--depth_estimator", "no_such_estimator"], "one of sgbm, depth_anything_v2"),
     (["--config", "mono_kitti", "--depth_estimator", "sgbm"], "needs a stereo pair"),
 ])

@@ -49,6 +49,12 @@ def test_import_loads_no_jax():
         "import pyslam_tpu_torch.dense.gaussian_splatting_integrator\n"
         "import pyslam_tpu_torch.main_scene_from_views\n"
         "import pyslam_tpu_torch.main_map_dense_reconstruction\n"
+        "import pyslam_tpu_torch.models.train_superpoint, pyslam_tpu_torch.models.train_lightglue\n"
+        "import pyslam_tpu_torch.models.train_cosplace, pyslam_tpu_torch.main_map_viewer\n"
+        "import pyslam_tpu_torch.io.colmap_io, pyslam_tpu_torch.io.ros1bag\n"
+        "import pyslam_tpu_torch.io.ros2bag, pyslam_tpu_torch.io.mcap_io\n"
+        "import pyslam_tpu_torch.viz.html_viewer, pyslam_tpu_torch.viz.live_viewer\n"
+        "import pyslam_tpu_torch.viz.viewer3d\n"
 
         "from pyslam_tpu_torch.semantics.semantic_segmentation import semantic_segmentation_factory\n"
         "for t in ('deeplabv3', 'segformer', 'yolo', 'rf_detr'):\n"

@@ -226,13 +226,6 @@ def test_video_loader_matches_reference(tmp_path):
         _same(pds.getImage(i), jds.getImage(i), ("video", i))
 
 
-@pytest.mark.parametrize("kind", ["ros1bag", "ros2bag", "mcap"])
-def test_bag_readers_name_their_roadmap_item(kind, tmp_path):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md item 4"):
-        port_factory_mod.dataset_factory({"type": kind, "base_path": str(tmp_path),
-                                          "topic": "/cam"})
-
-
 def test_synthetic_through_the_factory_is_the_reference_stream():
     settings = {"type": "synthetic", "num_frames": 3, "sensor_type": "rgbd",
                 "trajectory": "line", "step": 0.4}

@@ -13,9 +13,11 @@ semantic session with its floor and integrate_semantic card against CPU,
 the learned segmenters' sessions; ``18a`` the models alone) or 19 (VGGT
 and Fast3R card against CPU, main_scene_from_views and every scene-from-
 views backend, the Gaussian-splatting session, main_map_dense_reconstruction;
-``19a`` the two models alone).
+``19a`` the two models alone) or 20 (the three trainers card against CPU,
+trained and held to their floors; the large-window BA session, the ROS 2
+bag session and the viewers' export; ``20a`` the trainers alone).
 
-    PYTHONPATH=. python3 tests/torch_chip_phase.py 8|12|13|14|15|16|16abc|17|17a|18|18a|19|19a
+    PYTHONPATH=. python3 tests/torch_chip_phase.py 8|12|...|19|19a|20|20a
 
 Builds the kernels, renders the phase's frames as chip_smoke.py does and
 runs its function for the phase; prints what the phase prints.  Run from
@@ -38,7 +40,7 @@ def main():
     from pyslam_tpu_torch.slam.camera import PinholeCamera
 
     arg = sys.argv[1]
-    phase = int(arg[:2]) if arg[:2] in ("16", "17", "18", "19") else int(arg)
+    phase = int(arg[:2]) if arg[:2] in ("16", "17", "18", "19", "20") else int(arg)
     dev = torch.device("cuda", 0)
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -151,8 +153,20 @@ def main():
             t0 = time.time()
             out = cs.reconstruction_phase(dev, rgbd_frames, cam_rgbd, cs.bench_stream("RGBD"))
         print(json.dumps({"reconstruction": out}, default=float), flush=True)
+    elif phase == 20:
+        cam = PinholeCamera(ds.w, ds.h, ds.fx, ds.fy, ds.cx, ds.cy, fps=ds.fps,
+                            bf=ds.fx * ds.baseline, depth_threshold=35.0)
+        n = max(cs.LARGE_BA_FRAMES, cs.BAG_FRAMES) if arg == "20" else 0
+        frames = [(ds.getImage(i), ds.getImageRight(i), ds.getTimestamp(i)) for i in range(n)]
+        t0 = time.time()
+        out = {"train": cs.trainer_phase(dev)}
+        if arg == "20":
+            out["large_ba"], slam = cs.large_ba_phase(dev, frames[:cs.LARGE_BA_FRAMES], cam)
+            out["bag"] = cs.bag_phase(dev, frames[:cs.BAG_FRAMES], cam)
+            out["viewer"] = cs.viewer_phase(slam)
+        print(json.dumps({"trainers": out}, default=float), flush=True)
     else:
-        raise SystemExit(f"phase {phase}: only 8, 12, 13, 14, 15, 16, 17, 18 and 19 run alone")
+        raise SystemExit(f"phase {phase}: only 8 and 12-20 run alone")
     print(f"phase {phase}: {time.time() - t0:.1f} s", flush=True)
 
 

@@ -2,14 +2,20 @@
 parts from the JAX package's: ORB2 keypoints at response near-ties.
 
     python -m tests.torch_orb2_ties [--frames 6] [--features 300]
+    python -m tests.torch_orb2_ties --preset ORB2 --features 500 --levels 4 --frames 2
 
 On the first frames of tests/test_slam_e2e.py's 240x320 stereo stream,
-with the JAX package's HardNet weights carried across, prints for each
-frame: the left image's slots whose keypoint differs between the packages
+with the JAX package's HardNet weights carried across (ORB2_HARDNET, the
+default preset; ``--preset ORB2 --features 500 --levels 4`` is the
+extractor of tests/test_torch_depth_in_slam.py's SGBM upgrade), prints
+for each frame: the left image's slots whose keypoint differs between the packages
 (with the two responses of the first such slot), the keypoints each
 package keeps that the other cut (left and right images), the stereo
 matches of each package's own features, and how many slots the port's row
-match gives otherwise when it is handed the reference's features.  Runs
+match gives otherwise when it is handed the reference's features, and how
+many left slots the port's detector gives otherwise when it is handed the
+reference's image pyramid (0: the pyramid's column pass is the whole
+difference).  Runs
 on the CPU, the JAX package with x64 off (~1 min).
 """
 
@@ -25,6 +31,9 @@ def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--frames", type=int, default=6)
     ap.add_argument("--features", type=int, default=300)
+    ap.add_argument("--preset", default="ORB2_HARDNET", choices=("ORB2_HARDNET", "ORB2"))
+    ap.add_argument("--levels", type=int, default=None,
+                    help="pyramid levels (default: the preset's)")
     args = ap.parse_args()
     jax.config.update("jax_platforms", "cpu")
     import torch
@@ -34,8 +43,9 @@ def main():
     from pyslam_tpu.features.tracker import feature_tracker_factory as jax_factory
     from pyslam_tpu.io.dataset import SyntheticDataset
     from pyslam_tpu.io.dataset_types import SensorType
+    from pyslam_tpu.ops import image as jax_image
     from pyslam_tpu.ops import matching as jax_matching
-    from pyslam_tpu_torch.features.orb2 import FeatureData, stereo_match
+    from pyslam_tpu_torch.features.orb2 import FeatureData, extract_pyramid, stereo_match
     from pyslam_tpu_torch.features.tracker import FeatureTrackerConfigs, feature_tracker_factory
     from tests.test_torch_slice_learned import _carry_weights
     from tests.torch_parity import compiled_flax_init
@@ -45,12 +55,17 @@ def main():
     bf = ds.fx * ds.baseline
     max_disp = bf / max(P.kMinDepth, 1e-3)
     gate, row_tol = P.kStereoMatchingMaxDescriptorDistance, P.kStereoMatchingRowTolerance
+    size = dict(num_features=args.features)
+    if args.levels is not None:
+        size["num_levels"] = args.levels
     with jax.enable_x64(False), compiled_flax_init():
-        jt = jax_factory(dataclasses.replace(JaxConfigs.get("ORB2_HARDNET"),
-                                             num_features=args.features))
-    tt = feature_tracker_factory(dataclasses.replace(
-        FeatureTrackerConfigs.get("ORB2_HARDNET"), num_features=args.features), device="cpu")
-    _carry_weights("ORB2_HARDNET", jt, tt)
+        jt = jax_factory(dataclasses.replace(JaxConfigs.get(args.preset), **size))
+    tt = feature_tracker_factory(dataclasses.replace(FeatureTrackerConfigs.get(args.preset),
+                                                     **size), device="cpu")
+    orb = tt.extractor
+    if args.preset == "ORB2_HARDNET":
+        _carry_weights(args.preset, jt, tt)
+        orb = orb.base
 
     def keyset(xy, lv, valid):
         return {(float(x), float(y), int(v)) for (x, y), v, ok in zip(xy, lv, valid) if ok}
@@ -66,7 +81,14 @@ def main():
                 jnp.asarray(xyl[:, 0:1] - xyr[None, :, 0]), max_distance=gate,
                 row_tol=row_tol, min_disp=0.1, max_disp=max_disp, valid_a=jl.valid,
                 valid_b=jr.valid)
+            jpyr = jax_image.build_pyramid(jnp.asarray(left, jnp.float32), orb.num_levels,
+                                           orb.scale_factor)
         n_ref = int((np.asarray(idx) >= 0).sum())
+        fed = extract_pyramid([torch.from_numpy(np.array(p))[None] for p in jpyr],
+                              orb.num_features, orb.scale_factor, orb.fast_threshold, orb.cell,
+                              orb.per_cell)
+        fed_diff = int(((np.abs(fed.xy[0].numpy() - xyl).max(1) > 0)
+                        | (fed.valid[0].numpy() != np.asarray(jl.valid))).sum())
         gl, ur, _ = tt.extractor.extract_stereo(left, right, bf=bf, max_disp=max_disp,
                                                 max_distance=gate, row_tol=row_tol)
         gr = tt.detectAndCompute(right)
@@ -85,7 +107,8 @@ def main():
         same_match = int((np.abs(ur_ref.numpy() - u_ref) == 0).sum())
         print(f"frame {i}: {len(diff)} left slots differ{resp}; {'; '.join(cut)}; stereo "
               f"matches: reference {n_ref}, port {int((ur >= 0).sum())}; the port's row "
-              f"match on the reference's features agrees on {same_match}/{len(u_ref)} slots",
+              f"match on the reference's features agrees on {same_match}/{len(u_ref)} slots; "
+              f"given the reference's pyramid, {fed_diff} left slots differ",
               flush=True)
 
 
