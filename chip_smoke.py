@@ -305,17 +305,62 @@ Phases (one line each, and any failure exits non-zero):
         map.
      A ``trainers`` JSON line gathers their numbers and the script's wall
      time (the ``[time]`` line's seconds a phase).
+21. the native observation graph, the sharded GBA, the evaluation grid and
+     frontend_step, on the saved state of phase 13:
+     a. the g++ build's seconds; phase 13's map reloaded into a fresh Slam on
+        the card: the native mirror against the map's dicts (total
+        observations, the full edge list as a set); the mean host time of
+        update_connections and of one local BA's edge assembly over the
+        map's keyframes, their counting and edge dumps through the mirror and
+        through the dict loop (numbers to record, not claims);
+     b. that map's whole-map BA problem (2000 ORB2 features, 8 levels, 60
+        frames) in float64, as the reference's test runs, unsharded and
+        sharded over Mesh([cuda:0] * 4) and over make_mesh(): poses within
+        SHARD_POSE_TOL and points within SHARD_POINT_TOL; then in float32
+        through global_bundle_adjustment(use_sharded=...) on fresh reloads,
+        unsharded (twice: the card's own spread) and over both meshes: each
+        final cost within SHARD_COST_TOL of the unsharded solve's and the
+        maps' differences printed; P, C, O, each float32 solve's ms and
+        launches, and the bytes its reductions and broadcasts move (one
+        card: the four shards share cuda:0 and make_mesh() is one shard, so
+        no copy crosses devices);
+     c. SlamEvaluationManager.run_distributed over EVAL_GRID_SEQS stereo
+        line sequences of EVAL_GRID_FRAMES frames at the main stage's width
+        (2000 features, 8 levels), written to disk as KITTI sequences, on
+        [cuda:0] and on [cuda:0, cuda:0] (two threads on the card), each
+        cell against _single_run(deterministic=True) on the card, all under
+        torch's deterministic algorithms (see EVAL_GRID_FRAMES): tracked
+        share equal, keyframes within EVAL_KF_TOL, ATE within EVAL_ATE_TOL,
+        and whether each cell is bit-identical printed; one fast_nms launch
+        a frame over each grid; the reports written;
+     d. pipeline.frontend_step at __graft_entry__.py's shape (376x1241,
+        M = 2048, its draws with seed 0) on the card against the CPU:
+        keypoints, bits and matches identical (its random map leaves 4
+        matches and no inlier, so Tcw_opt is the LM's walk on outliers and
+        only printed); then frame 1 of phase 7's stream against a map of
+        frame 0's stereo keypoints back-projected at the ground-truth pose
+        with their descriptors, from the line's constant-velocity prediction
+        pushed 0.1 m off: card against CPU keypoints, bits and matches
+        identical and Tcw_opt within FRONTEND_TCW_TOL, at least
+        FRONTEND_MIN_INLIERS inliers and the camera centre within
+        FRONTEND_POSE_TOL_M of the ground truth; ms a call and one fast_nms
+        launch a call.
+     A ``distributed`` JSON line gathers their numbers and the script's wall
+     time (the ``[time]`` line's seconds a phase).
 It ends with a JSON line of kernel results, the card's name and power limit,
 and, last, {"ok": true, "device": {...}}.
 """
 
+import atexit
 import dataclasses
 import json
 import multiprocessing
 import os
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from concurrent.futures import ProcessPoolExecutor
 
@@ -626,6 +671,29 @@ LG_LOSS_WINDOW = 25
 SP_STEPS, CP_STEPS = 1500, 300   # the SuperPoint and CosPlace trainers' defaults
 LARGE_BA_FRAMES = 20
 BAG_FRAMES = 10
+# phase 21: the sharded GBA's iterations and the reference's tolerances
+# (tests/test_parallel.py:25-26: poses within 1e-5, points within 1e-4) on
+# the full-width problem in float64, as that test runs; in float32, the
+# GBA's own type, the card's atomic adds alone move the map's weakly held
+# points by up to 444 m between two unsharded solves of the same problem
+# (an NVIDIA H100 80GB HBM3 at 700 W: 3150 points, final costs equal to
+# 1e-6), so there each variant is held to the unsharded solve's final
+# cost.  The
+# evaluation grid: two line sequences at the main stage's width, the steps
+# and the 10 frames of tests/test_eval_distributed.py's grid, held to their
+# serial deterministic runs under torch's deterministic algorithms: with the
+# default ones the atomic adds made a step-0.3 m cell's ATE 1.2723 m in one
+# run and 0.7808 m in the next (the same card).  frontend_step's real-case
+# floors
+SHARD_GBA_ITERS = 10
+SHARD_POSE_TOL, SHARD_POINT_TOL = 1e-5, 1e-4
+SHARD_COST_TOL = 1e-4
+EVAL_GRID_SEQS, EVAL_GRID_FRAMES = 2, 10
+EVAL_ATE_TOL, EVAL_KF_TOL = 0.01, 1
+FRONTEND_MAP_POINTS = 2048
+FRONTEND_CALLS = 5
+FRONTEND_MIN_INLIERS, FRONTEND_POSE_TOL_M = 100, 0.05
+FRONTEND_TCW_TOL = 1e-4
 
 
 T_START = time.perf_counter()
@@ -686,6 +754,13 @@ def render_loop_frames(first, last):
     ds = loop_stream()
     return [(ds.getImage(i), ds.getImageRight(i), ds.getTimestamp(i))
             for i in range(first, last)]
+
+
+def render_main_frames(first, last):
+    """Frames [first, last) of the main stage's stream: (left, right,
+    timestamp) (a worker process)."""
+    ds = bench_stream()
+    return [(ds.getImage(i), ds.getImageRight(i), ds.getTimestamp(i)) for i in range(first, last)]
 
 
 def render_rgbd_frames(first, last):
@@ -3699,9 +3774,11 @@ def write_kitti_sequence(root, frames, ds):
     return path
 
 
-def entry_phase(dev, frames, ds):
+def entry_phase(dev, frames, ds, keep_state=None):
     """Phase 13: main_slam on a KITTI sequence written to disk, then the
-    saved state reloaded and relocalised in; returns its numbers."""
+    saved state reloaded and relocalised in; returns its numbers.  With
+    ``keep_state``, the saved state is copied there (phase 21 reads it)."""
+    import shutil
     import tempfile
 
     import torch
@@ -3775,6 +3852,8 @@ def entry_phase(dev, frames, ds):
         for name in ("map.json", "config_info.json", "loop_closing_state.npz",
                      "volumetric_state.npz"):
             assert name in files, (name, files)
+        if keep_state is not None:
+            shutil.copytree(state, keep_state)
 
         # ---- 13b: a fresh session on the card reloads the state
         cfg = Config(cfg_path)   # the same camera and dense flags
@@ -4189,6 +4268,415 @@ def viewer_phase(slam):
     return out
 
 
+# ------------------------------------------------------------------ phase 21
+def reload_state(dev, state, cam):
+    """Phase 13's saved map in a fresh stereo Slam on the card (ORB2, 2000
+    features, no loop closing)."""
+    from pyslam_tpu_torch.features.tracker import FeatureTrackerConfigs
+    from pyslam_tpu_torch.io.dataset_types import SensorType
+    from pyslam_tpu_torch.slam.slam import Slam
+
+    cfg = dataclasses.replace(FeatureTrackerConfigs.get("ORB2"), num_features=N_FEATURES)
+    slam = Slam(cam, cfg, sensor_type=SensorType.STEREO, device=dev)
+    slam.load_system_state(state)
+    return slam
+
+
+def host_ms(fn, items):
+    """Mean host ms of fn over items."""
+    t0 = time.perf_counter()
+    for x in items:
+        fn(x)
+    return (time.perf_counter() - t0) * 1e3 / max(len(items), 1)
+
+
+def native_phase(dev, state, cam):
+    """21a: the native mirror of a reloaded full-width map against its
+    dicts, and the host time of its two consumers through each."""
+    from pyslam_tpu_torch import native
+    from pyslam_tpu_torch.config_parameters import Parameters
+
+    slam = reload_state(dev, state, cam)
+    m = slam.map
+    obs = {p: o for p, o in m.observations.items() if o}
+    total = sum(len(o) for o in obs.values())
+    pids = np.asarray(sorted(obs), np.int64)
+    mirror = m.collect_observations(pids)
+    plain = m.collect_observations_plain(pids)
+    same = set(zip(*(a.tolist() for a in mirror))) == set(zip(*(a.tolist() for a in plain)))
+    kfs = [m.keyframes[k] for k in m.keyframe_order]
+    counts = [(kf.points[kf.points >= 0], kf.kid) for kf in kfs]
+    windows = []
+    for kf in kfs:
+        kids = [k for k in [kf.kid] + kf.ordered_covisibles(Parameters.kLocalBAWindowSize)
+                if k in m.keyframes]
+        windows.append((m.get_local_map_points(kids), kids, {k: i for i, k in enumerate(kids)}))
+    out = {"build_s": native.build_seconds, "total_observations": total,
+           "mirror_total": m._native.total_observations(), "edges": len(mirror[0]),
+           "edges_equal_as_sets": same, "keyframes": len(kfs), "points": len(pids),
+           "count_mirror_ms": host_ms(lambda a: m.covisibility_counts(*a), counts),
+           "count_plain_ms": host_ms(lambda a: m.covisibility_counts_plain(*a), counts),
+           "update_connections_ms": host_ms(m.update_connections, kfs),
+           "lba_points_mean": float(np.mean([len(w[0]) for w in windows])),
+           "lba_dump_mirror_ms": host_ms(lambda w: m.collect_observations(w[0]), windows),
+           "lba_dump_plain_ms": host_ms(lambda w: m.collect_observations_plain(w[0]), windows),
+           "lba_assembly_ms": host_ms(
+               lambda w: slam.local_mapping._collect_ba_observations(w[0], w[2], w[1]),
+               windows)}
+    out["in_sync"] = bool(out["mirror_total"] == total == out["edges"] and same)
+    build = "built in another process" if out["build_s"] is None else f"{out['build_s']:.2f} s"
+    log(f"[native] g++ build {build}; phase 13's map reloaded: {len(kfs)} keyframes, "
+        f"{len(pids)} points, {total} observations in the dicts, {out['mirror_total']} in the "
+        f"mirror, its edge list {out['edges']} rows {'equal' if same else 'NOT EQUAL'} to the "
+        f"dict loop's as a set; mean host ms over the keyframes: covisibility counting "
+        f"{out['count_mirror_ms']:.3f} through the mirror, {out['count_plain_ms']:.3f} through "
+        f"the dict loop, a whole update_connections {out['update_connections_ms']:.3f}; an LBA "
+        f"window's edge dump ({out['lba_points_mean']:.0f} points) {out['lba_dump_mirror_ms']:.3f}"
+        f" through the mirror, {out['lba_dump_plain_ms']:.3f} through the dict loop, its whole "
+        f"edge assembly {out['lba_assembly_ms']:.3f}")
+    del slam
+    return out
+
+
+def sharded_gba_phase(dev, state, cam):
+    """21b: the full-width map's GBA unsharded (twice), and sharded over four
+    shards on the card and over make_mesh(); the solves' times, launches
+    and the sharded runs' reduction bytes."""
+    import torch
+
+    from pyslam_tpu_torch.ops import optim
+    from pyslam_tpu_torch.parallel.mesh import Mesh, make_mesh
+    from pyslam_tpu_torch.parallel.sharded_ba import bundle_adjust_sharded
+    from pyslam_tpu_torch.slam.global_bundle_adjustment import (build_full_problem,
+                                                                global_bundle_adjustment)
+
+    meshes = {"unsharded": None, "unsharded again": None,
+              "Mesh([cuda:0] * 4)": Mesh([dev] * 4), "make_mesh()": make_mesh()}
+    slam = reload_state(dev, state, cam)
+    problem, kids, pids = build_full_problem(slam.map, cam, slam.feature_tracker, device=dev)
+    C, P, O = problem.poses.shape[0], problem.points.shape[0], problem.uv.shape[0]
+    del slam
+    out = {"P": P, "C": C, "O": O, "iters": SHARD_GBA_ITERS, "variants": {}}
+    maps = {}
+    for name, mesh in meshes.items():
+        if name == "unsharded again":
+            solve = None
+        elif mesh is None:
+            def solve():
+                return optim.bundle_adjust(problem, iters=SHARD_GBA_ITERS)
+        else:
+            def solve(mesh=mesh, traffic=None):
+                return bundle_adjust_sharded(problem, iters=SHARD_GBA_ITERS, mesh=mesh,
+                                             traffic=traffic)
+        row = {}
+        if solve is not None:
+            solve()
+            torch.cuda.synchronize()
+            times = []
+            for _ in range(3):
+                t0 = time.perf_counter()
+                solve()
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t0) * 1e3)
+            row["ms"] = statistics.median(times)
+            row["launches"], row["kernel_ms"] = profile_call(solve)
+            if mesh is not None:
+                traffic = {}
+                solve(traffic=traffic)
+                row["reduce_bytes"], row["broadcast_bytes"] = traffic["reduce"], \
+                    traffic["broadcast"]
+                row["devices"] = [str(d) for d in mesh.devices]
+        s2 = reload_state(dev, state, cam)
+        cost = global_bundle_adjustment(s2.map, cam, s2.feature_tracker, iters=SHARD_GBA_ITERS,
+                                        use_sharded=mesh is not None, mesh=mesh, device=dev)
+        row["cost"] = cost
+        maps[name] = (np.stack([s2.map.keyframes[k].Tcw for k in kids]),
+                      s2.map.points.pos[pids].copy())
+        del s2
+        out["variants"][name] = row
+    # the reference's tolerances are a float64 test's (tests/test_parallel.py
+    # runs x64): the same full-width problem in float64, unsharded and sharded
+    fields = ("poses", "points", "uv", "ur", "sigma2", "K", "bf")
+    p64 = problem._replace(**{f: getattr(problem, f).double() for f in fields})
+    f64 = {"unsharded": optim.bundle_adjust(p64, iters=SHARD_GBA_ITERS)}
+    for name, mesh in meshes.items():
+        if mesh is not None:
+            f64[name] = bundle_adjust_sharded(p64, iters=SHARD_GBA_ITERS, mesh=mesh)
+    out["float64"] = {}
+    for name, res in f64.items():
+        row = {"pose_err": float((res[0] - f64["unsharded"][0]).abs().max()),
+               "point_err": float((res[1] - f64["unsharded"][1]).abs().max()),
+               "cost": float(res[2])}
+        out["float64"][name] = row
+        log(f"[sharded-gba] float64, {name}: against the unsharded float64 solve poses "
+            f"{row['pose_err']:.3g}, points {row['point_err']:.3g}, final cost {row['cost']:.8g}")
+    ref_poses, ref_points = maps["unsharded"]
+    scale = np.maximum(np.abs(ref_points), 1.0)
+    for name, (poses, points) in maps.items():
+        row = out["variants"][name]
+        row["pose_err"] = float(np.abs(poses - ref_poses).max())
+        row["pose_rel_err"] = float((np.abs(poses - ref_poses)
+                                     / np.maximum(np.abs(ref_poses), 1.0)).max())
+        row["point_err"] = float(np.abs(points - ref_points).max())
+        row["point_rel_err"] = float((np.abs(points - ref_points) / scale).max())
+        extra = ""
+        if "ms" in row:
+            extra = f"{row['ms']:.1f} ms a solve, {row['launches']} launches, " \
+                    f"{row['kernel_ms']:.1f} ms of kernels"
+        if "reduce_bytes" in row:
+            extra += f", reductions {row['reduce_bytes']} B and broadcasts " \
+                     f"{row['broadcast_bytes']} B between the shards over {row['devices']}"
+        log(f"[sharded-gba] {name}: {extra + '; ' if extra else ''}against the unsharded "
+            f"solve: poses {row['pose_err']:.3g} ({row['pose_rel_err']:.3g} of max(|T|, 1)), "
+            f"points {row['point_err']:.3g} "
+            f"({row['point_rel_err']:.3g} of max(|x|, 1 m)), final cost {row['cost']:.6g}")
+    log(f"[sharded-gba] P {P} points, C {C} keyframes, O {O} observations, "
+        f"{SHARD_GBA_ITERS} LM iterations; one card: the four shards share cuda:0 and "
+        f"make_mesh() is one shard, so no copy crosses devices (the bytes are what the shards "
+        f"would exchange)")
+    return out
+
+
+def grid_stream(k):
+    """Sequence k of phase 21c's grid: the main stage's world and width on a
+    line at the step of tests/test_eval_distributed.py's grid."""
+    from pyslam_tpu_torch.io.dataset_types import SensorType
+    from pyslam_tpu_torch.io.synthetic import SyntheticDataset, SyntheticWorld
+
+    world = SyntheticWorld(n_points=16000, extent=60.0, depth_range=(4.0, 80.0))
+    return SyntheticDataset(num_frames=EVAL_GRID_FRAMES, h=H, w=W, fx=FX, baseline=BASELINE_M,
+                            trajectory="line", step=0.3 + 0.02 * k,
+                            sensor_type=SensorType.STEREO, world=world)
+
+
+def eval_grid_phase(dev, cam):
+    """21c: the evaluation grid over KITTI sequences written to disk, on
+    [card] and [card, card], against each cell's serial deterministic run on
+    the card, all under torch's deterministic algorithms."""
+    import tempfile
+
+    import torch
+
+    from pyslam_tpu_torch.evaluation.manager import EvalConfig, SlamEvaluationManager
+    from pyslam_tpu_torch.features.tracker import FeatureTrackerConfig
+    from pyslam_tpu_torch.ops.fast import fast_nms
+
+    n = EVAL_GRID_FRAMES
+    t0 = time.perf_counter()
+    # in this process: for 20 frames, faster than starting worker processes
+    frames = [(ds.getImage(i), ds.getImageRight(i), ds.getTimestamp(i))
+              for ds in map(grid_stream, range(EVAL_GRID_SEQS)) for i in range(n)]
+    out = {"frames": n * EVAL_GRID_SEQS, "render_s": time.perf_counter() - t0, "grids": {}}
+    failed = []
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_eval_") as root:
+        datasets = []
+        for k in range(EVAL_GRID_SEQS):
+            name = f"{k:02d}"
+            seq_root = os.path.join(root, name)
+            write_kitti_sequence(seq_root, frames[k * n:(k + 1) * n], grid_stream(k))
+            os.rename(os.path.join(seq_root, "sequences", "00"),
+                      os.path.join(seq_root, "sequences", name))
+            datasets.append({"type": "kitti", "base_path": seq_root, "name": name,
+                             "sensor_type": "stereo", "camera": cam.to_json(),
+                             "groundtruth": {"type": "kitti",
+                                             "path": os.path.join(seq_root, "poses", "00.txt"),
+                                             "times_path": os.path.join(
+                                                 seq_root, "sequences", name, "times.txt")}})
+        cfg = EvalConfig(datasets=datasets,
+                         presets={"orb2": FeatureTrackerConfig(num_features=N_FEATURES,
+                                                               num_levels=N_LEVELS)},
+                         runs_per_dataset=1, loop_detector=None)
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            mgr = SlamEvaluationManager(cfg, out_dir=os.path.join(root, "serial"), device=dev)
+            t0 = time.perf_counter()
+            serial = {ds["name"]: mgr._single_run(ds, "orb2", cfg.presets["orb2"], 0,
+                                                  deterministic=True) for ds in datasets}
+            out["serial_s"] = time.perf_counter() - t0
+            for tag, devices in (("one thread", [dev]), ("two threads", [dev, dev])):
+                mgr = SlamEvaluationManager(cfg, out_dir=os.path.join(root, tag), device=dev)
+                torch.cuda.synchronize()
+                fast_nms.launches = 0
+                t0 = time.perf_counter()
+                mgr.run_distributed(devices=devices)
+                torch.cuda.synchronize()
+                row = {"wall_s": time.perf_counter() - t0, "launches": fast_nms.launches,
+                       "reports": os.path.exists(os.path.join(root, tag, "table_rmse.csv")),
+                       "cells": {}}
+                for r in mgr.results:
+                    a = serial[r.dataset]
+                    row["cells"][r.dataset] = {
+                        "ate": r.ate_rmse, "serial_ate": a.ate_rmse,
+                        "keyframes": r.num_keyframes, "serial_keyframes": a.num_keyframes,
+                        "points": r.num_points, "serial_points": a.num_points,
+                        "percent_lost": r.percent_lost, "serial_percent_lost": a.percent_lost,
+                        "bit_identical": (r.ate_rmse, r.num_keyframes, r.num_points,
+                                          r.percent_lost) == (a.ate_rmse, a.num_keyframes,
+                                                              a.num_points, a.percent_lost)}
+                    if not (r.percent_lost == a.percent_lost
+                            and abs(r.num_keyframes - a.num_keyframes) <= EVAL_KF_TOL
+                            and abs(r.ate_rmse - a.ate_rmse) <= EVAL_ATE_TOL):
+                        failed.append((tag, r.dataset))
+                if row["launches"] != out["frames"] or not row["reports"]:
+                    failed.append((tag, "launches", row["launches"], "reports", row["reports"]))
+                out["grids"][tag] = row
+                log(f"[eval-grid] run_distributed on {[str(d) for d in devices]} ({tag}): "
+                    f"{row['wall_s']:.1f} s, fast_nms launches {row['launches']} for "
+                    f"{out['frames']} frames; " + "; ".join(
+                        f"sequence {name}: ATE {c['ate']:.4f} m (serial {c['serial_ate']:.4f}), "
+                        f"{c['keyframes']} keyframes (serial {c['serial_keyframes']}), "
+                        f"{c['points']} points (serial {c['serial_points']}), "
+                        f"{100 - c['percent_lost']:.1f}% tracked (serial "
+                        f"{100 - c['serial_percent_lost']:.1f}%), "
+                        f"{'bit-identical' if c['bit_identical'] else 'not bit-identical'}"
+                        for name, c in row["cells"].items()) + f"; reports {row['reports']}")
+        finally:
+            torch.use_deterministic_algorithms(False)
+    log(f"[eval-grid] {EVAL_GRID_SEQS} KITTI sequences of {n} frames at {H}x{W} (rendered in "
+        f"{out['render_s']:.1f} s), torch's deterministic algorithms on; the serial "
+        f"deterministic runs took {out['serial_s']:.1f} s")
+    out["failed"] = failed
+    return out
+
+
+def frontend_step_phase(dev, frames, ds):
+    """21d: frontend_step at __graft_entry__.py's shape card against CPU,
+    then a real frame against a map of the previous frame's stereo points."""
+    import torch
+
+    from pyslam_tpu_torch.features.orb2 import ORB2Extractor
+    from pyslam_tpu_torch.ops.fast import fast_nms
+    from pyslam_tpu_torch.pipeline import frontend_step
+
+    rng = np.random.default_rng(0)
+    M = FRONTEND_MAP_POINTS
+    img = rng.uniform(0, 255, (H, W)).astype(np.float32)
+    pos = np.concatenate([rng.uniform(-10, 10, (M, 2)), rng.uniform(5, 40, (M, 1))],
+                         axis=1).astype(np.float32)
+    desc = rng.integers(0, 2, (M, 256)).astype(np.int8)
+    K = np.asarray([[718.856, 0, 607.19], [0, 718.856, 185.2], [0, 0, 1]], np.float32)
+    args = (img, pos, desc, np.ones(M, bool), np.eye(4, dtype=np.float32), K)
+    fast_nms.launches = 0
+    card = frontend_step(*args, device=dev)
+    torch.cuda.synchronize()
+    graft_launches = fast_nms.launches
+    cpu = frontend_step(*args, device="cpu")
+    same_kp = bool(torch.equal(card[0].xy.cpu(), cpu[0].xy)
+                   and torch.equal(card[0].level.cpu(), cpu[0].level)
+                   and torch.equal(card[0].desc.cpu(), cpu[0].desc))
+    same_match = bool(torch.equal(card[1].cpu(), cpu[1]))
+    tcw_err = float((card[2].cpu() - cpu[2]).abs().max())
+    out = {"graft": {"keypoints_identical": same_kp, "matches_identical": same_match,
+                     "matches": int((card[1] >= 0).sum()), "tcw_err": tcw_err,
+                     "inliers": [int(card[3]), int(cpu[3])], "launches": graft_launches}}
+    log(f"[frontend] __graft_entry__'s draw (376x1241, M {M}, seed 0) card against CPU: "
+        f"keypoints and bits {'identical' if same_kp else 'DIFFER'}, matches "
+        f"{'identical' if same_match else 'DIFFER'} ({out['graft']['matches']}), Tcw_opt within "
+        f"{tcw_err:.3g}, inliers {int(card[3])} / {int(cpu[3])}, {graft_launches} fast_nms launch")
+
+    # the real case: frame 0's stereo keypoints at the ground-truth pose
+    left0, right0, _ = frames[0]
+    bf = FX * BASELINE_M
+    f0, _, depth0 = ORB2Extractor(N_FEATURES, N_LEVELS, device=dev).extract_stereo(
+        left0, right0, bf=bf, max_disp=bf / 0.1, max_distance=100.0, row_tol=2.0)
+    ok = (f0.valid & (depth0 > 0)).cpu().numpy()
+    xy, z = f0.xy.cpu().numpy()[ok], depth0.cpu().numpy()[ok].astype(np.float64)
+    pc = np.stack([(xy[:, 0] - ds.cx) / ds.fx * z, (xy[:, 1] - ds.cy) / ds.fy * z, z], 1)
+    Twc0, Twc1 = ds.poses[0], ds.poses[1]
+    map_pos = (pc @ Twc0[:3, :3].T + Twc0[:3, 3]).astype(np.float32)
+    map_desc = f0.desc.cpu().numpy()[ok]
+    Kr = np.asarray([[ds.fx, 0, ds.cx], [0, ds.fy, ds.cy], [0, 0, 1]], np.float32)
+    Tcw0, Tcw1 = np.linalg.inv(Twc0), np.linalg.inv(Twc1)
+    velocity = Tcw1 @ np.linalg.inv(Tcw0)   # the line's, the same every frame
+    pred = velocity @ Tcw0
+    pred[:3, 3] += [0.1, 0.0, 0.0]
+    real = (frames[1][0], map_pos, map_desc, np.ones(len(map_pos), bool),
+            pred.astype(np.float32), Kr)
+    frontend_step(*real, device=dev)   # warm
+    torch.cuda.synchronize()
+    fast_nms.launches = 0
+    times = []
+    for _ in range(FRONTEND_CALLS):
+        t0 = time.perf_counter()
+        res = frontend_step(*real, device=dev)
+        n_inl = int(res[3])
+        times.append((time.perf_counter() - t0) * 1e3)
+    launches = fast_nms.launches
+    res_cpu = frontend_step(*real, device="cpu")
+    real_kp = bool(torch.equal(res[0].xy.cpu(), res_cpu[0].xy)
+                   and torch.equal(res[0].level.cpu(), res_cpu[0].level)
+                   and torch.equal(res[0].desc.cpu(), res_cpu[0].desc))
+    real_match = bool(torch.equal(res[1].cpu(), res_cpu[1]))
+    real_tcw_err = float((res[2].cpu() - res_cpu[2]).abs().max())
+    log(f"[frontend] the real frame card against CPU: keypoints and bits "
+        f"{'identical' if real_kp else 'DIFFER'}, matches "
+        f"{'identical' if real_match else 'DIFFER'}, Tcw_opt within {real_tcw_err:.3g}, "
+        f"inliers {int(res[3])} / {int(res_cpu[3])}")
+    Twc_opt = np.linalg.inv(res[2].cpu().numpy().astype(np.float64))
+    err = float(np.linalg.norm(Twc_opt[:3, 3] - Twc1[:3, 3]))
+    pred_err = float(np.linalg.norm(np.linalg.inv(pred)[:3, 3] - Twc1[:3, 3]))
+    out["real"] = {"map_points": int(len(map_pos)), "matches": int((res[1] >= 0).sum()),
+                   "inliers": n_inl, "pose_err_m": err, "prediction_err_m": pred_err,
+                   "ms": statistics.median(times), "calls": FRONTEND_CALLS,
+                   "launches": launches, "keypoints_identical": real_kp,
+                   "matches_identical": real_match, "tcw_err": real_tcw_err}
+    log(f"[frontend] frame 1 against frame 0's {len(map_pos)} stereo points: "
+        f"{out['real']['matches']} matches, {n_inl} inliers, camera centre {err:.4f} m from the "
+        f"ground truth (prediction {pred_err:.4f} m off); {out['real']['ms']:.1f} ms a call "
+        f"(median of {FRONTEND_CALLS}, host clock with the result read), fast_nms launches "
+        f"{launches} for {FRONTEND_CALLS} calls")
+    failed = []
+    if not (same_kp and same_match and graft_launches == 1):
+        failed.append("graft draw card against CPU")
+    if not (real_kp and real_match and real_tcw_err <= FRONTEND_TCW_TOL):
+        failed.append("real case card against CPU")
+    if not (n_inl >= FRONTEND_MIN_INLIERS and err <= FRONTEND_POSE_TOL_M
+            and launches == FRONTEND_CALLS):
+        failed.append("real case")
+    out["failed"] = failed
+    return out
+
+
+def distributed_phase(dev, state, frames, ds):
+    """Phase 21; returns its numbers, having checked every part of it."""
+    from pyslam_tpu_torch.config_parameters import Parameters
+    from pyslam_tpu_torch.slam.camera import PinholeCamera
+
+    saved = Parameters.as_dict()
+    cam = PinholeCamera(ds.w, ds.h, ds.fx, ds.fy, ds.cx, ds.cy, fps=ds.fps,
+                        bf=ds.fx * ds.baseline, depth_threshold=35.0)
+    t = {}
+    t0 = time.perf_counter()
+    out = {"native": native_phase(dev, state, cam)}
+    t["21a"] = time.perf_counter() - t0
+    out["sharded_gba"] = sharded_gba_phase(dev, state, cam)
+    t["21b"] = time.perf_counter() - t0 - sum(t.values())
+    out["eval_grid"] = eval_grid_phase(dev, cam)
+    Parameters.set_from_dict(saved)
+    t["21c"] = time.perf_counter() - t0 - sum(t.values())
+    out["frontend_step"] = frontend_step_phase(dev, frames, ds)
+    t["21d"] = time.perf_counter() - t0 - sum(t.values())
+    out["seconds"] = t
+    log("[time] phase 21: " + json.dumps({k: round(v, 1) for k, v in t.items()}))
+    failed = []
+    if not out["native"]["in_sync"]:
+        failed.append("21a: the mirror is not in sync with the dicts")
+    gba = out["sharded_gba"]
+    for name, row in gba["float64"].items():
+        if not (np.isfinite(row["cost"]) and row["pose_err"] <= SHARD_POSE_TOL
+                and row["point_err"] <= SHARD_POINT_TOL):
+            failed.append(f"21b: float64 {name} outside the reference's tolerances")
+    ref_cost = gba["variants"]["unsharded"]["cost"]
+    for name, row in gba["variants"].items():
+        if not (np.isfinite(row["cost"])
+                and abs(row["cost"] - ref_cost) <= SHARD_COST_TOL * abs(ref_cost)):
+            failed.append(f"21b: {name}'s final cost off the unsharded solve's")
+    failed += [f"21c: {f}" for f in out["eval_grid"]["failed"]]
+    failed += [f"21d: {f}" for f in out["frontend_step"]["failed"]]
+    assert not failed, failed
+    return out
+
+
 def main():
     import torch
 
@@ -4326,10 +4814,9 @@ def main():
     # ---------------------------------------------------------------- 7
     PHASE_START.append((7, time.perf_counter()))
     t0 = time.perf_counter()
-    frames = [(ds.getImage(i), ds.getImageRight(i), ds.getTimestamp(i))
-              for i in range(N_FRAMES)]
+    frames = render(render_main_frames, N_FRAMES)
     log(f"[main] rendered {N_FRAMES} stereo frames {H}x{W} in "
-        f"{time.perf_counter() - t0:.1f} s")
+        f"{time.perf_counter() - t0:.1f} s (worker processes)")
     slam = Slam(cam, FeatureTrackerConfig(num_features=N_FEATURES, num_levels=N_LEVELS),
                 sensor_type=SensorType.STEREO, device=dev)
     integ = build_integrator(cam, dev)
@@ -4490,7 +4977,10 @@ def main():
 
     # ---------------------------------------------------------------- 13
     PHASE_START.append((13, time.perf_counter()))
-    entry = entry_phase(dev, frames, ds)
+    state_root = tempfile.mkdtemp(prefix="chip_smoke_state_")
+    atexit.register(shutil.rmtree, state_root, True)
+    saved_state = os.path.join(state_root, "state")
+    entry = entry_phase(dev, frames, ds, keep_state=saved_state)
     print(json.dumps({"entry": entry}, default=float), flush=True)
 
     # ---------------------------------------------------------------- 14
@@ -4560,6 +5050,16 @@ def main():
         f"{json.dumps(trainers['phase_s'])}")
     print(json.dumps({"trainers": trainers}, default=float), flush=True)
 
+    # ---------------------------------------------------------------- 21
+    PHASE_START.append((21, time.perf_counter()))
+    dist = distributed_phase(dev, saved_state, frames, ds)
+    dist["wall_s"] = time.perf_counter() - T_START
+    ends = [t for _, t in PHASE_START[1:]] + [time.perf_counter()]
+    dist["phase_s"] = {ph: round(end - t, 1) for (ph, t), end in zip(PHASE_START, ends)}
+    log(f"[time] the script {dist['wall_s']:.1f} s; seconds a phase "
+        f"{json.dumps(dist['phase_s'])}")
+    print(json.dumps({"distributed": dist}, default=float), flush=True)
+
     print(json.dumps({"kernels": [{
         "name": "fast_nms", "route": "cuda",
         "source": "pyslam_tpu_torch/csrc/fast_nms.cu",
@@ -4583,6 +5083,9 @@ def main():
         "launches_gs_stage": recon["gs"]["launches"],
         "launches_large_ba_stage": trainers["large_ba"]["launches"],
         "launches_bag_stage": trainers["bag"]["launches"],
+        "launches_frontend_step": dist["frontend_step"]["real"]["launches"],
+        "launches_eval_grid": dist["eval_grid"]["grids"]["two threads"]["launches"],
+        "launches_sharded_gba_maps": entry["launches"],
         "mono_frame": one["b1_pyramid"], "vo_rgbd_level_th15": one["vo_level_th15"],
         "max_abs_err": max_err, "ms": kern_ms, "plain_ms": plain_ms,
         "bound_ms": work["bound_ms"], "bound_by": work["bound_by"], "library_ms": None,

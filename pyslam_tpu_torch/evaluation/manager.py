@@ -7,15 +7,17 @@ aggregates ATE/max/%lost into CSV/LaTeX/HTML reports).  Here runs execute
 in-process (the reference needed subprocesses for isolation of its global
 state); the report writer emits CSV + markdown (and the LaTeX, HTML and PDF reports
 of ``report_formats.py``).  Every run's ``Slam`` lives on the manager's
-``device``.  The one-sequence-per-device grid of the JAX package
-(``run_distributed``) waits with ``parallel/`` (ROADMAP.md item 4).
+``device``; ``run_distributed`` runs the grid one sequence a device, a
+thread a device, each cell's session on its own device.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import time
+from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass, field
 
 import numpy as np
@@ -31,6 +33,7 @@ from pyslam_tpu_torch.features.tracker import FeatureTrackerConfig
 from pyslam_tpu_torch.io.dataset_factory import dataset_factory
 from pyslam_tpu_torch.io.dataset_types import SensorType
 from pyslam_tpu_torch.io.ground_truth import groundtruth_factory
+from pyslam_tpu_torch.parallel.mesh import make_mesh
 from pyslam_tpu_torch.slam.camera import PinholeCamera
 from pyslam_tpu_torch.slam.slam import Slam
 from pyslam_tpu_torch.utils.logging import Printer
@@ -93,7 +96,52 @@ class SlamEvaluationManager:
         self.write_reports()
         return self.results
 
-    def _single_run(self, ds_settings, preset_name, tracker_cfg, run) -> EvalRunResult:
+    def run_distributed(self, devices=None, *, device: torch.device | str = "cuda"):
+        """The grid one sequence a device: the multi-device mapping of the
+        reference's subprocess grid (``slam_evaluation_manager.py:314`` runs
+        N independent headless processes; no collectives).  ``devices``
+        defaults to every visible device of ``device``'s type; a device
+        listed twice runs two cells at once.
+
+        Cell ``i`` of a preset runs on ``devices[i % n]``, in a thread of
+        its own, so the devices work concurrently while the host's
+        bookkeeping interleaves under the GIL.  The runs drain the back-end
+        after every frame (``deterministic=True``), so each cell's result is
+        the serial deterministic run's, whatever the scheduling.  Presets
+        run in sequential groups: ``Slam.__init__`` writes the preset's
+        descriptor gates into ``Parameters``, which cells running at once
+        must not race on."""
+        devices = [torch.device(d) for d in
+                   (make_mesh(device=device).devices if devices is None else devices)]
+
+        def worker(cell):
+            idx, ds_settings, preset_name, tracker_cfg, run = cell
+            dev = devices[idx % len(devices)]
+            ctx = torch.cuda.device(dev) if dev.type == "cuda" else contextlib.nullcontext()
+            with ctx:
+                return self._single_run(ds_settings, preset_name, tracker_cfg, run,
+                                        deterministic=True, device=dev)
+
+        for preset_name, tracker_cfg in self.config.presets.items():
+            cells = [(i, ds, preset_name, tracker_cfg, run) for i, (ds, run) in enumerate(
+                (ds, run) for ds in self.config.datasets
+                for run in range(self.config.runs_per_dataset))]
+            with ThreadPoolExecutor(max_workers=len(devices)) as ex:
+                batch = list(ex.map(worker, cells))
+            self.results.extend(batch)
+            for r in batch:
+                Printer.green(
+                    f"[eval-dist] {r.dataset}/{r.preset} run {r.run}: "
+                    f"ate={r.ate_rmse:.4f} lost={r.percent_lost:.2f}%"
+                )
+        self.write_reports()
+        return self.results
+
+    def _single_run(self, ds_settings, preset_name, tracker_cfg, run,
+                    deterministic: bool = False, device=None) -> EvalRunResult:
+        """One cell on ``device`` (the manager's by default); with
+        ``deterministic`` the back-end is drained after every frame, which
+        takes the scheduling out of the result."""
         t0 = time.time()
         dataset = dataset_factory(ds_settings)
         gt = groundtruth_factory(
@@ -112,7 +160,8 @@ class SlamEvaluationManager:
             )
         slam = Slam(camera, tracker_cfg,
                     loop_detector_config=self.config.loop_detector,
-                    sensor_type=sensor, device=self.device)
+                    sensor_type=sensor,
+                    device=self.device if device is None else device)
         num_lost = 0
         for i in range(len(dataset)):
             slam.track(
@@ -120,6 +169,8 @@ class SlamEvaluationManager:
                 depth=dataset.getDepth(i), frame_id=i,
                 timestamp=dataset.getTimestamp(i),
             )
+            if deterministic:
+                slam.local_mapping.finish()
             if slam.state.name != "OK":
                 num_lost += 1
         ts, poses = slam.get_final_trajectory()

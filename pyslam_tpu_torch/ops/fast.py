@@ -7,14 +7,18 @@ CUDA tensors both launch the hand-written kernel ``csrc/fast_nms.cu`` (built
 at first use), once a call, or raise; on CPU tensors they run the plain
 PyTorch version ``nms3x3(fast_score_map(...))`` beside it, which is also
 what the kernel is checked against.  ``fast_nms.launches`` counts the
-kernel's launches from either entry point.
+kernel's launches from either entry point, under a lock (sessions in several
+threads share the count).
 """
 
 from __future__ import annotations
 
+import threading
+
 import torch
 
 MAX_LEVELS = 16   # levels the kernel's table holds (csrc/fast_nms.cu)
+_count_lock = threading.Lock()   # sessions in several threads bump one count
 
 # Bresenham circle of radius 3, clockwise from the top: (dy, dx) pairs.
 CIRCLE = (
@@ -119,7 +123,8 @@ def fast_nms_pyramid(levels: list[torch.Tensor], threshold: float,
                                           float(threshold), int(border), stream)
     if err != 0:
         raise RuntimeError(f"fast_nms_pyramid kernel launch failed: cudaError {err}")
-    fast_nms.launches += 1
+    with _count_lock:
+        fast_nms.launches += 1
     return outs
 
 

@@ -193,18 +193,38 @@ def _inv3x3(M):
     return adj / det[..., None, None]
 
 
-def _lm_step(problem: BAProblem, poses, points, lam, use_robust):
-    """One damped Gauss-Newton step; returns (new_poses, new_points,
-    cost at the current state, cost at the new state)."""
+def _reduce(parts, home, traffic):
+    """Sum of the shards' partial tensors on ``home``, in shard order (one
+    shard: its tensor itself).  ``traffic`` (a dict or None) counts the
+    bytes the other shards send."""
+    acc = parts[0].to(home)
+    for x in parts[1:]:
+        if traffic is not None:
+            traffic["reduce"] += x.numel() * x.element_size()
+        acc = acc + x.to(home)
+    return acc
+
+
+def _broadcast(x, shards, traffic):
+    """``x`` on every shard's device; ``traffic`` counts the bytes sent to
+    shards other than the first (which lives on ``x``'s device)."""
+    if traffic is not None:
+        traffic["broadcast"] += (len(shards) - 1) * x.numel() * x.element_size()
+    return [x.to(s.uv.device) for s in shards]
+
+
+def _shard_normal_equations(s: BAProblem, poses, points, use_robust):
+    """One shard's observations: its partial sums (Hcc, Hpp, bc, bp, cost)
+    and its per-observation cross blocks Hcp (O_s, 6, 3)."""
     C = poses.shape[0]
     P = points.shape[0]
-    cam, pt = problem.cam_idx, problem.pt_idx
-    r, Jc, Jp, behind, is_st = _residual_jacobians(
-        poses[cam], points[pt], problem.uv, problem.ur, problem.K, problem.bf)
-    w, _, loss = _robust_weights(r, problem.sigma2, is_st, use_robust)
-    active = problem.valid & ~behind
+    cam, pt = s.cam_idx, s.pt_idx
+    r, Jc, Jp, behind, is_st = _residual_jacobians(poses[cam], points[pt], s.uv, s.ur, s.K,
+                                                   s.bf)
+    w, _, loss = _robust_weights(r, s.sigma2, is_st, use_robust)
+    active = s.valid & ~behind
     w = torch.where(active, w, torch.zeros_like(w))
-    Jc = torch.where((~problem.fixed[cam])[:, None, None], Jc, torch.zeros_like(Jc))
+    Jc = torch.where((~s.fixed[cam])[:, None, None], Jc, torch.zeros_like(Jc))
     cost = torch.sum(torch.where(active, loss, torch.zeros_like(loss)))
 
     Jcw = Jc * w[:, None, None]
@@ -220,25 +240,56 @@ def _lm_step(problem: BAProblem, poses, points, lam, use_robust):
     bp = torch.zeros((P, 3), dtype=dt, device=dev).index_add_(
         0, pt, torch.einsum("nij,ni->nj", Jpw, r))
     Hcp = torch.einsum("nij,nik->njk", Jcw, Jp)                      # (O, 6, 3)
+    return (Hcc, Hpp, bc, bp, cost), Hcp
+
+
+def _lm_step(shards, poses, points, lam, use_robust, traffic=None):
+    """One damped Gauss-Newton step over the observations of ``shards``
+    (BAProblems whose observation rows partition the problem's, each on
+    its device, the first on the device of ``poses``); returns (new_poses,
+    new_points, cost at the current state, cost at the new state) on that
+    device.  Each shard assembles its partial normal equations; they are
+    reduced onto the first shard's device in shard order, where the
+    reduced camera system is solved."""
+    home = poses.device
+    C = poses.shape[0]
+    P = points.shape[0]
+    fixed = shards[0].fixed
+    local_poses = _broadcast(poses, shards, traffic)
+    local_points = _broadcast(points, shards, traffic)
+    blocks = [_shard_normal_equations(s, ps, xs, use_robust)
+              for s, ps, xs in zip(shards, local_poses, local_points)]
+    Hcc, Hpp, bc, bp, cost = (_reduce([b[0][k] for b in blocks], home, traffic)
+                              for k in range(5))
 
     lamD_p = lam * torch.clamp(torch.diagonal(Hpp, dim1=-2, dim2=-1), min=1e-6)
     Hpp_inv = _inv3x3(Hpp + torch.diag_embed(lamD_p))
-    Y = torch.einsum("oij,ojk->oik", Hcp, Hpp_inv[pt])               # (O, 6, 3)
 
     # exact Schur cross term: per-observation blocks scattered into per-
-    # (point, camera) rows, then one (6C, 3P) x (3P, 6C) product
-    lin = pt * C + cam
-    A = torch.zeros((P * C, 18), dtype=dt, device=dev).index_add_(0, lin, Y.reshape(-1, 18))
-    B = torch.zeros((P * C, 18), dtype=dt, device=dev).index_add_(0, lin, Hcp.reshape(-1, 18))
+    # (point, camera) rows, reduced over the shards, then one
+    # (6C, 3P) x (3P, 6C) product
+    A_parts, B_parts = [], []
+    for s, (_, Hcp), Hinv in zip(shards, blocks, _broadcast(Hpp_inv, shards, traffic)):
+        dt, dev = Hcp.dtype, Hcp.device
+        Y = torch.einsum("oij,ojk->oik", Hcp, Hinv[s.pt_idx])        # (O, 6, 3)
+        lin = s.pt_idx * C + s.cam_idx
+        A_parts.append(torch.zeros((P * C, 18), dtype=dt, device=dev).index_add_(
+            0, lin, Y.reshape(-1, 18)))
+        B_parts.append(torch.zeros((P * C, 18), dtype=dt, device=dev).index_add_(
+            0, lin, Hcp.reshape(-1, 18)))
+    A = _reduce(A_parts, home, traffic)
+    B = _reduce(B_parts, home, traffic)
+    del A_parts, B_parts
     A2 = A.reshape(P, C, 6, 3).permute(0, 3, 1, 2).reshape(P * 3, C * 6)
     B2 = B.reshape(P, C, 6, 3).permute(0, 3, 1, 2).reshape(P * 3, C * 6)
     S_cross = A2.T @ B2
 
+    dt = S_cross.dtype
     lamD_c = lam * torch.clamp(torch.diagonal(Hcc, dim1=-2, dim2=-1), min=1e-6)
     Hcc_d = Hcc + torch.diag_embed(lamD_c)
     S = torch.block_diag(*Hcc_d) - S_cross
     b_schur = bc.reshape(-1) - A2.T @ bp.reshape(-1)
-    fixed6 = torch.repeat_interleave(problem.fixed, 6)
+    fixed6 = torch.repeat_interleave(fixed, 6)
     S = torch.where(fixed6[:, None] | fixed6[None, :], torch.zeros_like(S), S)
     S = S + torch.diag(torch.where(fixed6, 1.0, 1e-9).to(dt))
     rhs = torch.where(fixed6, torch.zeros_like(b_schur), -b_schur)
@@ -246,16 +297,48 @@ def _lm_step(problem: BAProblem, poses, points, lam, use_robust):
     S_eq = S * dscale[:, None] * dscale[None, :]
     dc = (torch.linalg.solve_ex(S_eq, rhs * dscale)[0] * dscale).reshape(C, 6)
 
-    t_obs = torch.einsum("oij,oi->oj", Hcp, dc[cam])
-    tp = torch.zeros((P, 3), dtype=dt, device=dev).index_add_(0, pt, t_obs)
+    tp = _reduce([torch.zeros((P, 3), dtype=dt, device=dc_s.device).index_add_(
+                      0, s.pt_idx, torch.einsum("oij,oi->oj", Hcp, dc_s[s.cam_idx]))
+                  for s, (_, Hcp), dc_s in zip(shards, blocks, _broadcast(dc, shards, traffic))],
+                 home, traffic)
     dp = torch.einsum("pij,pj->pi", Hpp_inv, -bp - tp)
 
     new_poses = lie.se3_exp(dc) @ poses
-    new_poses = torch.where(problem.fixed[:, None, None], poses, new_poses)
+    new_poses = torch.where(fixed[:, None, None], poses, new_poses)
     new_points = points + dp
-    new_cost, _, _ = ba_cost_and_chi2(problem._replace(poses=new_poses, points=new_points),
-                                      use_robust)
+    new_cost = _shards_cost(shards, new_poses, new_points, use_robust, traffic)
     return new_poses, new_points, cost, new_cost
+
+
+def _shards_cost(shards, poses, points, use_robust, traffic=None):
+    """The robust cost of every shard's observations at (poses, points),
+    reduced onto the device of ``poses``."""
+    return _reduce([ba_cost_and_chi2(s._replace(poses=ps, points=xs), use_robust)[0]
+                    for s, ps, xs in zip(shards, _broadcast(poses, shards, traffic),
+                                         _broadcast(points, shards, traffic))],
+                   poses.device, traffic)
+
+
+def bundle_adjust_shards(shards, iters: int = 10, use_robust: bool = True, lam0=None,
+                         traffic=None):
+    """Joint pose + point LM with the exact Schur complement over the
+    observations of ``shards`` (see ``_lm_step``); returns (poses, points,
+    final cost, lam) on the first shard's device.  One shard is
+    ``bundle_adjust``."""
+    poses, points = shards[0].poses, shards[0].points
+    cost = _shards_cost(shards, poses, points, use_robust, traffic)
+    lam = (torch.tensor(1e-4, dtype=poses.dtype, device=poses.device) if lam0 is None
+           else torch.as_tensor(lam0, dtype=poses.dtype, device=poses.device))
+    for _ in range(iters):
+        new_poses, new_points, cur_cost, new_cost = _lm_step(shards, poses, points, lam,
+                                                             use_robust, traffic)
+        accept = new_cost < cur_cost
+        poses = torch.where(accept, new_poses, poses)
+        points = torch.where(accept, new_points, points)
+        lam = torch.where(accept, torch.clamp(lam * 0.5, min=1e-9),
+                          torch.clamp(lam * 5.0, max=1e8))
+        cost = torch.where(accept, new_cost, cost)
+    return poses, points, cost, lam
 
 
 def bundle_adjust(problem: BAProblem, iters: int = 10, use_robust: bool = True,
@@ -266,19 +349,7 @@ def bundle_adjust(problem: BAProblem, iters: int = 10, use_robust: bool = True,
     (poses, points, cost, lam, inlier mask): feeding ``lam`` back as
     ``lam0`` makes a run of N then M iterations identical to one run of
     N + M, which the chunked local BA relies on."""
-    poses, points = problem.poses, problem.points
-    cost, _, _ = ba_cost_and_chi2(problem, use_robust)
-    lam = (torch.tensor(1e-4, dtype=poses.dtype, device=poses.device) if lam0 is None
-           else torch.as_tensor(lam0, dtype=poses.dtype, device=poses.device))
-    for _ in range(iters):
-        new_poses, new_points, cur_cost, new_cost = _lm_step(problem, poses, points,
-                                                             lam, use_robust)
-        accept = new_cost < cur_cost
-        poses = torch.where(accept, new_poses, poses)
-        points = torch.where(accept, new_points, points)
-        lam = torch.where(accept, torch.clamp(lam * 0.5, min=1e-9),
-                          torch.clamp(lam * 5.0, max=1e8))
-        cost = torch.where(accept, new_cost, cost)
+    poses, points, cost, lam = bundle_adjust_shards([problem], iters, use_robust, lam0)
     if return_state:
         inl = ba_outlier_mask(problem._replace(poses=poses, points=points))
         return poses, points, cost, lam, inl

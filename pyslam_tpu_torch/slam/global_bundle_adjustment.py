@@ -3,7 +3,11 @@
 
 GBA is one Schur-complement LM solve over every keyframe and map point
 (``ops.optim.bundle_adjust``); the map's SoA layout makes the problem pure
-indexing.  :class:`AsyncGBA` runs it as the reference's concurrent
+indexing, and its edge list comes from the map's native mirror
+(``Map.collect_observations``), in the reference's order.  The multi-device
+variant (``global_bundle_adjustment(use_sharded=True)``: the observations
+split over a mesh, the partial normal equations reduced onto its first
+device) lives in ``pyslam_tpu_torch.parallel.sharded_ba``.  :class:`AsyncGBA` runs it as the reference's concurrent
 GBA-then-correct protocol: the solve is dispatched as chunks of LM
 iterations whose completion is polled through a CUDA event (ready at once
 on the CPU) while tracking goes on; on completion the result is written back
@@ -20,6 +24,7 @@ import torch
 
 from pyslam_tpu_torch.config_parameters import Parameters
 from pyslam_tpu_torch.ops import optim
+from pyslam_tpu_torch.parallel.sharded_ba import bundle_adjust_sharded
 from pyslam_tpu_torch.slam.local_mapping import Pending
 from pyslam_tpu_torch.slam.map import Map
 from pyslam_tpu_torch.utils.logging import Printer
@@ -33,15 +38,7 @@ def build_full_problem(m: Map, camera, feature_tracker, *,
     kids = list(m.keyframe_order)
     kid_to_row = {k: i for i, k in enumerate(kids)}
     pids = m.points.alive_ids()
-    pt_l, kid_l, kp_l = [], [], []
-    for i, pid in enumerate(pids):
-        for kid, kp_idx in m.observations.get(int(pid), {}).items():
-            pt_l.append(i)
-            kid_l.append(kid)
-            kp_l.append(kp_idx)
-    pt_rows = np.asarray(pt_l, np.int64)
-    kids_arr = np.asarray(kid_l, np.int64)
-    kp_arr = np.asarray(kp_l, np.int64)
+    pt_rows, kids_arr, kp_arr = m.collect_observations(pids)
     max_kid = max(kids) if kids else 0
     lut = np.full(max_kid + 1, -1, np.int64)
     for kid, row in kid_to_row.items():
@@ -73,15 +70,23 @@ def build_full_problem(m: Map, camera, feature_tracker, *,
     return problem, kids, pids
 
 
-def global_bundle_adjustment(m: Map, camera, feature_tracker, iters: int | None = None, *,
+def global_bundle_adjustment(m: Map, camera, feature_tracker, iters: int | None = None,
+                             use_sharded: bool = False, mesh=None, *,
                              device: torch.device | str = "cuda") -> float:
     """Run GBA and write the result into the map; returns the final cost
-    (inf, and the map untouched, when the solve diverged)."""
+    (inf, and the map untouched, when the solve diverged).  With
+    ``use_sharded`` the observations are split over ``mesh`` (by default
+    every visible device of ``device``'s type;
+    ``parallel.sharded_ba.bundle_adjust_sharded``)."""
     iters = iters or Parameters.kOptimizerGBAIterations
     if m.num_keyframes() < 2:
         return 0.0
     problem, kids, pids = build_full_problem(m, camera, feature_tracker, device=device)
-    new_poses, new_points, cost = optim.bundle_adjust(problem, iters=iters)
+    if use_sharded:
+        new_poses, new_points, cost = bundle_adjust_sharded(problem, iters=iters, mesh=mesh,
+                                                            device=device)
+    else:
+        new_poses, new_points, cost = optim.bundle_adjust(problem, iters=iters)
     new_poses = new_poses.cpu().numpy().astype(np.float64)
     new_points = new_points.cpu().numpy().astype(np.float64)
     if not (np.isfinite(new_poses).all() and np.isfinite(new_points).all()):

@@ -496,19 +496,12 @@ class LocalMapping:
 
     # ------------------------------------------------------------ local BA
     def _collect_ba_observations(self, local_pids, kid_to_row, all_kids):
-        """Edge list (cam_idx, pt_idx, uv, ur, sigma2) of the window."""
+        """Edge list (cam_idx, pt_idx, uv, ur, sigma2) of the window, in the
+        order of the map's native mirror (``Map.collect_observations``)."""
         m = self.map
-        pt_l, kid_l, kp_l = [], [], []
-        for i, pid in enumerate(local_pids):
-            for kid, kp_idx in m.observations.get(int(pid), {}).items():
-                pt_l.append(i)
-                kid_l.append(kid)
-                kp_l.append(kp_idx)
-        if not pt_l:
+        pt_rows, kids_arr, kp_arr = m.collect_observations(local_pids)
+        if len(pt_rows) == 0:
             return None
-        pt_rows = np.asarray(pt_l, np.int64)
-        kids_arr = np.asarray(kid_l, np.int64)
-        kp_arr = np.asarray(kp_l, np.int64)
         max_kid = max(kid_to_row)
         lut = np.full(max_kid + 1, -1, np.int64)
         for kid, row in kid_to_row.items():

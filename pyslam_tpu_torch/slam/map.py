@@ -2,8 +2,12 @@
 (port of ``pyslam_tpu/slam/map.py``).
 
 Map points are rows of capacity-growing host numpy arrays; observations are
-host dicts {pid: {kid: kp_idx}} (the pure-Python observation graph: the
-reference's optional native mirror is not ported).  ``device_store()``
+host dicts {pid: {kid: kp_idx}}, the authoritative store, mirrored at every
+mutation into the native C++ observation graph (``pyslam_tpu_torch.native``,
+built with g++ at the first ``Map``; a failed build raises).  The
+covisibility counter and the BA edge lists come from the mirror, so they run
+in its libstdc++ order, as the reference's; the dict loops beside them
+(``*_plain``) are their plain versions, for the tests.  ``device_store()``
 keeps a device copy of the arrays the tracking and fuse kernels read, and
 syncs it by rows: the mutators record which rows changed, and the sync
 writes just those rows into the device tensors IN PLACE (``index_copy_``)
@@ -17,6 +21,7 @@ import numpy as np
 import torch
 
 from pyslam_tpu_torch.config_parameters import Parameters
+from pyslam_tpu_torch.native import NativeObsGraph
 from pyslam_tpu_torch.slam.frame import KeyFrame
 
 
@@ -91,8 +96,9 @@ class Map:
         self._dirty_pos: set[int] = set()    # rows whose pos changed
         self._dirty_full: set[int] = set()   # rows with any field changed
         self._dirty_overflow = True          # True => full upload needed
-        # observations: pid -> {kid: kp_idx}
+        # observations: pid -> {kid: kp_idx}, mirrored into the native graph
         self.observations: dict[int, dict[int, int]] = {}
+        self._native = NativeObsGraph()
         # callbacks fired on delete_point(pid)/replace_point(old,new) so
         # sidecar per-point stores (semantic accumulators, embeddings) can
         # prune/merge; signature cb(old_pid, new_pid_or_None)
@@ -228,12 +234,32 @@ class Map:
         obs[kf.kid] = int(kp_idx)
         kf.points[kp_idx] = pid
         self.points.num_obs[pid] = len(obs)
+        self._native.add_observation(int(pid), int(kf.kid), int(kp_idx))
+
+    def restore_observations(self, kf: KeyFrame):
+        """Rebuild a loaded keyframe's observations from its slots, in the
+        dicts and the mirror alike: a slot naming a dead or unknown point is
+        cleared, and of a point's two slots (a live keyframe can hold one,
+        since ``add_observation`` keeps a point's first slot and leaves the
+        second set) the lower is kept (the reference's loaders keep the
+        higher in their dicts and the lower in their mirror)."""
+        st = self.points
+        for kp_idx in np.nonzero(kf.points >= 0)[0]:
+            pid = int(kf.points[kp_idx])
+            if pid < st.size and st.valid[pid]:
+                obs = self.observations.setdefault(pid, {})
+                if kf.kid not in obs:
+                    obs[kf.kid] = int(kp_idx)
+                    self._native.add_observation(pid, int(kf.kid), int(kp_idx))
+            else:
+                kf.points[kp_idx] = -1
 
     def remove_observation(self, pid: int, kid: int):
         obs = self.observations.get(pid)
         if obs is None or kid not in obs:
             return
         kp_idx = obs.pop(kid)
+        self._native.remove_observation(int(pid), int(kid))
         kf = self.keyframes.get(kid)
         if kf is not None and 0 <= kp_idx < len(kf.points) and kf.points[kp_idx] == pid:
             kf.points[kp_idx] = -1
@@ -243,6 +269,7 @@ class Map:
 
     def delete_point(self, pid: int):
         self._mark_dirty(pid)
+        self._native.remove_point(int(pid))
         obs = self.observations.pop(pid, {})
         for kid, kp_idx in obs.items():
             kf = self.keyframes.get(kid)
@@ -259,6 +286,7 @@ class Map:
             return
         self._mark_dirty([old_pid, new_pid])
         obs_old = self.observations.pop(old_pid, {})
+        self._native.remove_point(int(old_pid))
         st = self.points
         for kid, kp_idx in obs_old.items():
             kf = self.keyframes.get(kid)
@@ -272,6 +300,7 @@ class Map:
             else:
                 obs_new[kid] = kp_idx
                 kf.points[kp_idx] = new_pid
+                self._native.add_observation(int(new_pid), int(kid), int(kp_idx))
         st.n_visible[new_pid] += st.n_visible[old_pid]
         st.n_found[new_pid] += st.n_found[old_pid]
         st.num_obs[new_pid] = len(self.observations.get(new_pid, {}))
@@ -475,15 +504,7 @@ class Map:
         ``keyframe.py update_connections``; weight >= 15 shared points)."""
         if min_weight is None:
             min_weight = Parameters.kMinNumOfCovisiblePointsForCreatingConnection
-        pids = kf.points[kf.points >= 0]
-        counter = {}
-        for pid in pids:
-            obs = self.observations.get(int(pid))
-            if not obs:
-                continue
-            for kid in obs.keys():
-                if kid != kf.kid:
-                    counter[kid] = counter.get(kid, 0) + 1
+        counter = self.covisibility_counts(kf.points[kf.points >= 0], kf.kid)
         if not counter:
             return
         best_kid = max(counter, key=counter.get)
@@ -500,6 +521,39 @@ class Map:
         if kf.parent is None and kf.kid != self.keyframe_order[0]:
             kf.parent = best_kid
             self.keyframes[best_kid].children.add(kf.kid)
+
+    def covisibility_counts(self, pids, exclude_kid: int) -> dict[int, int]:
+        """{kid: points of ``pids`` it observes}, ``exclude_kid`` left out,
+        in the native counter's order (which picks the parent on ties)."""
+        return self._native.covisibility_counts(np.asarray(pids, np.int64), int(exclude_kid))
+
+    def covisibility_counts_plain(self, pids, exclude_kid: int) -> dict[int, int]:
+        """The dict loop ``covisibility_counts`` replaces (the same counts,
+        in the dicts' insertion order)."""
+        counter: dict[int, int] = {}
+        for pid in pids:
+            for kid in self.observations.get(int(pid), {}):
+                if kid != exclude_kid:
+                    counter[kid] = counter.get(kid, 0) + 1
+        return counter
+
+    def collect_observations(self, pids) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+        """The edge list of the given points from the native mirror: (row of
+        ``pids``, kid, kp_idx) int64 arrays, in the mirror's order."""
+        rows, kids, kps = self._native.collect_observations(np.asarray(pids, np.int64))
+        return rows, kids.astype(np.int64), kps.astype(np.int64)
+
+    def collect_observations_plain(self, pids) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+        """The dict loop ``collect_observations`` replaces (the same edges,
+        in the dicts' insertion order)."""
+        rows, kids, kps = [], [], []
+        for i, pid in enumerate(pids):
+            for kid, kp_idx in self.observations.get(int(pid), {}).items():
+                rows.append(i)
+                kids.append(kid)
+                kps.append(kp_idx)
+        return (np.asarray(rows, np.int64), np.asarray(kids, np.int64),
+                np.asarray(kps, np.int64))
 
     def get_local_keyframes(self, kf: KeyFrame, max_n: int | None = None) -> list[int]:
         max_n = max_n or Parameters.kMaxNumOfKeyframesInLocalMap

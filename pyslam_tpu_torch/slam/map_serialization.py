@@ -3,7 +3,8 @@
 
 Schema: keyframes carry poses + keypoint arrays + descriptors (base64) +
 per-slot point ids; map points carry positions/normals/ranges;
-observations are rebuilt from the keyframe slots on load.  Binary
+observations are rebuilt from the keyframe slots on load (dicts and the
+map's native mirror).  Binary
 descriptors (0/1 bit-planes) are bit-packed at this boundary, float
 descriptors stored raw.  The files are the JAX package's: either package
 reads what the other writes.
@@ -158,12 +159,7 @@ def map_from_json(d: dict, feature_tracker, camera) -> Map:
         kf._reorder()
         m.add_keyframe(kf)
         max_fid = max(max_fid, kf.id)
-        for kp_idx in np.nonzero(kf.points >= 0)[0]:
-            pid = int(kf.points[kp_idx])
-            if pid < st.size and st.valid[pid]:
-                m.observations.setdefault(pid, {})[kf.kid] = int(kp_idx)
-            else:
-                kf.points[kp_idx] = -1
+        m.restore_observations(kf)
     for pid, obs in m.observations.items():
         st.num_obs[pid] = len(obs)
     Frame._id_counter = max(Frame._id_counter, max_fid + 1)

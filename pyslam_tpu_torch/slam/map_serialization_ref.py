@@ -414,12 +414,7 @@ def map_from_reference_json(d: dict, feature_tracker, camera=None) -> Map:
         kf._reorder()
         # observations from keyframe slots (authoritative, like the native
         # loader)
-        for kp_idx in np.nonzero(kf.points >= 0)[0]:
-            pid = int(kf.points[kp_idx])
-            if pid < st.size and st.valid[pid]:
-                m.observations.setdefault(pid, {})[kf.kid] = int(kp_idx)
-            else:
-                kf.points[kp_idx] = -1
+        m.restore_observations(kf)
     for pid, obs in m.observations.items():
         st.num_obs[pid] = len(obs)
 

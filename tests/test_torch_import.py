@@ -55,6 +55,8 @@ def test_import_loads_no_jax():
         "import pyslam_tpu_torch.io.ros2bag, pyslam_tpu_torch.io.mcap_io\n"
         "import pyslam_tpu_torch.viz.html_viewer, pyslam_tpu_torch.viz.live_viewer\n"
         "import pyslam_tpu_torch.viz.viewer3d\n"
+        "import pyslam_tpu_torch.native, pyslam_tpu_torch.pipeline\n"
+        "import pyslam_tpu_torch.parallel.mesh, pyslam_tpu_torch.parallel.sharded_ba\n"
 
         "from pyslam_tpu_torch.semantics.semantic_segmentation import semantic_segmentation_factory\n"
         "for t in ('deeplabv3', 'segformer', 'yolo', 'rf_detr'):\n"
@@ -95,11 +97,41 @@ def test_no_jax_import_in_source(path):
 
 
 def test_import_builds_nothing():
-    """Importing the package must not compile or load the CUDA kernels."""
+    """Importing the package must not compile or load the CUDA kernels, nor
+    the native observation graph (built at the first ``Map``)."""
     import pyslam_tpu_torch  # noqa: F401
     from pyslam_tpu_torch import _build
 
     assert _build._lib is None
+    code = ("import pyslam_tpu_torch, pyslam_tpu_torch.slam.slam, pyslam_tpu_torch.pipeline\n"
+            "import pyslam_tpu_torch.parallel.sharded_ba, pyslam_tpu_torch.evaluation.manager\n"
+            "from pyslam_tpu_torch import native\n"
+            "assert native._lib is None and native.build_seconds is None\n")
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         env=dict(os.environ, PYTHONPATH=ROOT), capture_output=True,
+                         text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+
+
+def test_native_source_is_the_ports_own():
+    """The native library is built from the port's own copy of the C++
+    source, and no module of the port names a path into the JAX package."""
+    from pyslam_tpu_torch import native
+
+    assert os.path.dirname(native.SOURCE) == os.path.join(PKG, "native")
+    assert os.path.exists(native.SOURCE)
+    assert native.library_path().startswith(os.path.join(PKG, "_build") + os.sep)
+    own = os.path.join(PKG, "native", "__init__.py")
+    for path in _py_files():
+        tree = ast.parse(open(path).read(), path)
+        docs = {id(n.body[0].value) for n in ast.walk(tree)
+                if isinstance(n, (ast.Module, ast.ClassDef, ast.FunctionDef))
+                and n.body and isinstance(n.body[0], ast.Expr)}
+        for node in ast.walk(tree):
+            if (isinstance(node, ast.Constant) and isinstance(node.value, str)
+                    and id(node) not in docs):
+                assert "pyslam_tpu/native" not in node.value, path
+                assert "obs_graph" not in node.value or path == own, path
 
 
 @pytest.mark.parametrize("name", ["slam.slam.Slam", "features.orb2.ORB2Extractor",
@@ -147,7 +179,11 @@ def test_import_builds_nothing():
                                   "models.vggt.VGGTModel", "models.fast3r.Fast3RModel",
                                   "scene_from_views.scene_from_views.scene_from_views_factory",
                                   "scene_from_views.scene_from_views.SceneFromViewsBase",
-                                  "dense.gaussian_splatting_integrator.GaussianSplattingVolume"])
+                                  "dense.gaussian_splatting_integrator.GaussianSplattingVolume",
+                                  "parallel.mesh.make_mesh",
+                                  "parallel.sharded_ba.bundle_adjust_sharded",
+                                  "pipeline.frontend_step",
+                                  "evaluation.manager.SlamEvaluationManager.run_distributed"])
 def test_entry_points_default_to_the_card(name):
     """The entry points run on the card unless the caller asks for the CPU;
     ``device`` is keyword-only."""

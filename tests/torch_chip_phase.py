@@ -15,9 +15,11 @@ and Fast3R card against CPU, main_scene_from_views and every scene-from-
 views backend, the Gaussian-splatting session, main_map_dense_reconstruction;
 ``19a`` the two models alone) or 20 (the three trainers card against CPU,
 trained and held to their floors; the large-window BA session, the ROS 2
-bag session and the viewers' export; ``20a`` the trainers alone).
+bag session and the viewers' export; ``20a`` the trainers alone) or 21
+(phase 13, whose saved state it reads, then the native mirror, the sharded
+GBA, the evaluation grid and frontend_step).
 
-    PYTHONPATH=. python3 tests/torch_chip_phase.py 8|12|...|19|19a|20|20a
+    PYTHONPATH=. python3 tests/torch_chip_phase.py 8|12|...|19|19a|20|20a|21
 
 Builds the kernels, renders the phase's frames as chip_smoke.py does and
 runs its function for the phase; prints what the phase prints.  Run from
@@ -26,6 +28,7 @@ another commit, to compare two commits in one call on one card).
 """
 
 import json
+import os
 import subprocess
 import sys
 import time
@@ -40,7 +43,7 @@ def main():
     from pyslam_tpu_torch.slam.camera import PinholeCamera
 
     arg = sys.argv[1]
-    phase = int(arg[:2]) if arg[:2] in ("16", "17", "18", "19", "20") else int(arg)
+    phase = int(arg[:2]) if arg[:2] in ("16", "17", "18", "19", "20", "21") else int(arg)
     dev = torch.device("cuda", 0)
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -165,8 +168,23 @@ def main():
             out["bag"] = cs.bag_phase(dev, frames[:cs.BAG_FRAMES], cam)
             out["viewer"] = cs.viewer_phase(slam)
         print(json.dumps({"trainers": out}, default=float), flush=True)
+    elif phase == 21:
+        import shutil
+        import tempfile
+
+        frames = [(ds.getImage(i), ds.getImageRight(i), ds.getTimestamp(i))
+                  for i in range(cs.N_FRAMES)]
+        root = tempfile.mkdtemp(prefix="chip_phase_state_")
+        try:
+            state = os.path.join(root, "state")
+            cs.entry_phase(dev, frames, ds, keep_state=state)
+            t0 = time.time()
+            print(json.dumps({"distributed": cs.distributed_phase(dev, state, frames, ds)},
+                             default=float), flush=True)
+        finally:
+            shutil.rmtree(root, ignore_errors=True)
     else:
-        raise SystemExit(f"phase {phase}: only 8 and 12-20 run alone")
+        raise SystemExit(f"phase {phase}: only 8 and 12-21 run alone")
     print(f"phase {phase}: {time.time() - t0:.1f} s", flush=True)
 
 
