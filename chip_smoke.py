@@ -41,7 +41,7 @@ Phases (one line each, and any failure exits non-zero):
      circle with a revisit tail (period 130, a 16000-point world of extent
      30 m, 2000 features on 8 levels, depth threshold 35) through
      Slam.track() with next-frame prefetch and the DBOW3 loop detector, then
-     finish(); the frames are rendered first by worker processes.  Prints FPS, p50 / p95 latency over frames 8..149 and the slowest
+     finish().  Prints FPS, p50 / p95 latency over frames 8..149 and the slowest
      frame, loops closed, tracked frames, ATE before and after each
      correction and at the end, GBA runs applied and aborted, fast_nms
      launches and the loop-closing stage timers; asserts a loop closed, every
@@ -50,8 +50,10 @@ Phases (one line each, and any failure exits non-zero):
      relocalised from a pose pushed 1.1 m away, and the loop event's device
      cost:
      kernel launches and summed kernel time (torch.profiler) of one
-     geometry check, one correction (without its GBA), its pose graph alone,
-     a GBA dispatch (problem and first chunk) and a GBA chunk;
+     geometry check, the correction's pose graph (the correction without
+     its GBA launched 75312 kernels and its pose graph alone 74049 when both
+     were profiled, on an NVIDIA H100 80GB HBM3 at 700 W), a GBA dispatch
+     (problem and first chunk) and a GBA chunk;
   9. the RGBD stage: the first RGBD_FRAMES of phase 7's stream as left
      image and sensor depth through Slam(sensor_type=RGBD).track() with
      next-frame prefetch, bf = fx * 0.54 for the virtual right coordinates,
@@ -347,6 +349,18 @@ Phases (one line each, and any failure exits non-zero):
         launch a call.
      A ``distributed`` JSON line gathers their numbers and the script's wall
      time (the ``[time]`` line's seconds a phase).
+Every log line starts with the seconds since the script began.  The frames
+of phases 7-10 are rendered by one pool of worker processes before phase 7
+runs (the RGBD frames are the stereo frames' left images with the depth of
+the same render).  Once phase 8 has ended, the parts that need nothing of
+this process but phase 7's first SIDE_FRAMES frames (16a LoFTR, 16c the
+VPR models, 17a the depth models, 18a the semantic models, 19a-c, 19d's
+held-out and drift witnesses, 19e, 20a's trainers and 21c's evaluation
+grid: side_work) run in a second process on the same card, started as
+``chip_smoke.py --side DIR``, beside phases 9-15; this process waits for it
+when phase 16 starts, prints its log there and takes its numbers into
+phases 16-21.  The loop stages of phases 8 and 16 and the SGBM upgrade of
+phase 17 run with no second process beside them.
 It ends with a JSON line of kernel results, the card's name and power limit,
 and, last, {"ok": true, "device": {...}}.
 """
@@ -427,6 +441,12 @@ LOOP_FRAMES, LOOP_PERIOD = 150, 130
 LOOP_SKIP = 8          # latency percentiles over frames 8.. (bench.py:251)
 RELOC_FRAME = 60       # relocalised against the final map after the stage
 RENDER_CHUNK = 10
+# the second process (SideProcess): its CPU threads and niceness, so that
+# the sessions beside it keep the host, and how long after the start this
+# process waits for it
+SIDE_THREADS, SIDE_NICE = 4, 10
+SIDE_DEADLINE_S = 950.0
+SIDE_FRAMES = 6        # phase 7's frames the second process's parts use
 # phases 9-11: the main stage's stream as RGBD (left image and its depth)
 # and monocular (left image), and the visual odometries on it
 VO_FAST_TH = 15.0      # the RGBD VO's FAST threshold (visual_odometry_rgbd.py)
@@ -566,15 +586,23 @@ VLAD_MIN_LOOPS = 1
 # (tests/test_depth_in_slam.py:64-70), and ATE under the JAX package's on
 # the same 60 frames on the CPU (python -m tests.torch_sensor_stage --package
 # jax --sensor mono --depth-estimator sgbm, x64 off: WITNESS_DEPTH_SGBM,
-# tracked, resets, ATE m; 55 keyframes, 47.228 m against 47.200 m) plus
-# DEPTH_ATE_MARGIN: the port keyframes less often than the reference on
-# this stream (--package port on the CPU: 60/60, 34 keyframes, ATE 0.1132
-# m, 47.134 m; 23 keyframes on the card), and its sessions on these frames
-# ended at 0.110-0.158 m (phase 7, stereo) and 0.122-0.175 m (phase 9,
-# RGBD) in five earlier card runs of this script; the ceiling stays under
-# the 0.25 m of tests/test_slam_e2e.py
+# tracked, resets, ATE m; 55 keyframes, 47.228 m against 47.200 m; 55 and
+# 0.0485 m in a later run) plus DEPTH_ATE_MARGIN.  That run's back end is
+# idle at every keyframe decision (jax.Array.is_ready on the CPU), so it
+# makes a keyframe nearly every frame; under the port's readiness rule
+# (--polls-like-the-port: WITNESS_DEPTH_SGBM_PORT_READINESS) it makes its
+# keyframes at the port's CPU frames (0-9, then every second frame: 34
+# left in the map) and ends at 0.0720 m, the port on the CPU at 0.0981 m
+# (0.1005 m given the reference's pyramid).  On the card the 8 ms
+# wall-clock budget leaves the back end busy and its queue full on two
+# frames of three: 23 keyframes, 0.112 m (tests/torch_chip_phase.py 17
+# --log-kf).  The port's sessions on these frames ended at 0.110-0.158 m
+# (phase 7, stereo) and 0.122-0.175 m (phase 9, RGBD) in five earlier card
+# runs of this script; the ceiling stays under the 0.25 m of
+# tests/test_slam_e2e.py
 DEPTH_LENGTH_TOL = 0.25
 WITNESS_DEPTH_SGBM = (60, 0, 0.0572)
+WITNESS_DEPTH_SGBM_PORT_READINESS = (60, 0, 0.0720)
 DEPTH_ATE_MARGIN = 0.15
 DEPTH_SGBM_ATE_MAX = WITNESS_DEPTH_SGBM[2] + DEPTH_ATE_MARGIN
 # 17c: the JAX package on the first DEPTH_LEARNED_FRAMES left images with its
@@ -678,13 +706,23 @@ BAG_FRAMES = 10
 # points by up to 444 m between two unsharded solves of the same problem
 # (an NVIDIA H100 80GB HBM3 at 700 W: 3150 points, final costs equal to
 # 1e-6), so there each variant is held to the unsharded solve's final
-# cost.  The
+# cost.  The JAX package's float32 solve places them as loosely: on a
+# saved phase-13 map on the CPU its points under 0.5 degrees of parallax
+# lie up to 1.04 m from the float64 solution (the port's 0.35 m), where
+# the two packages' float64 solves agree to 4e-9 m
+# (tests/torch_gba_placement.py).  The
 # evaluation grid: two line sequences at the main stage's width, the steps
 # and the 10 frames of tests/test_eval_distributed.py's grid, held to their
 # serial deterministic runs under torch's deterministic algorithms: with the
 # default ones the atomic adds made a step-0.3 m cell's ATE 1.2723 m in one
-# run and 0.7808 m in the next (the same card).  frontend_step's real-case
-# floors
+# run and 0.7808 m in the next (the same card).  Both packages give the
+# same cells on the same PNGs on the CPU (tests/torch_eval_grid_witness.py:
+# ATE 0.0401 and 0.9015 m in the JAX package, 0.0266 and 0.9011 m in the
+# port): frame 1 is tracked from frame 0's pose without a motion model, and
+# at the 0.32 m step its pose LM stalls 0.013 m from frame 0, so every later
+# frame follows a map that barely moves; the 0.30 m step's converges on
+# the CPU, and both steps' cells ended at 0.78-1.27 m in earlier card runs.
+# frontend_step's real-case floors
 SHARD_GBA_ITERS = 10
 SHARD_POSE_TOL, SHARD_POINT_TOL = 1e-5, 1e-4
 SHARD_COST_TOL = 1e-4
@@ -701,7 +739,8 @@ PHASE_START = []      # (phase, time it started), for the [time] line
 
 
 def log(msg):
-    print(msg, flush=True)
+    """One line of the script's log, stamped with the seconds since it began."""
+    print(f"{time.perf_counter() - T_START:7.1f} {msg}", flush=True)
 
 
 def synth_image(rng, h, w, n_blobs=80):
@@ -756,13 +795,6 @@ def render_loop_frames(first, last):
             for i in range(first, last)]
 
 
-def render_main_frames(first, last):
-    """Frames [first, last) of the main stage's stream: (left, right,
-    timestamp) (a worker process)."""
-    ds = bench_stream()
-    return [(ds.getImage(i), ds.getImageRight(i), ds.getTimestamp(i)) for i in range(first, last)]
-
-
 def render_rgbd_frames(first, last):
     """Frames [first, last) of the main stage's stream as RGBD: (left,
     depth, timestamp) (a worker process)."""
@@ -770,13 +802,100 @@ def render_rgbd_frames(first, last):
     return [(ds.getImage(i), ds.getDepth(i), ds.getTimestamp(i)) for i in range(first, last)]
 
 
-def render(fn, n):
-    """fn's frames [0, n) rendered in chunks by up to 8 worker processes."""
-    starts = range(0, n, RENDER_CHUNK)
+def render_main_rgbd_frames(first, last):
+    """Frames [first, last) of the main stage's stream as (left, right,
+    timestamp, depth), the depth from the left image's own render as the
+    RGBD stream's getDepth takes it (one render fewer a frame; a worker
+    process)."""
+    ds = bench_stream()
+    out = []
+    for i in range(first, last):
+        left, zbuf = ds._render(ds._Tcw(i))
+        depth = np.where(np.isfinite(zbuf), zbuf, 0.0).astype(np.float32)
+        out.append((left, ds.getImageRight(i), ds.getTimestamp(i), depth))
+    return out
+
+
+def render_all(*streams):
+    """The frames [0, n) of each (fn, n) of ``streams``, rendered in chunks
+    by one pool of up to 8 worker processes: one list a stream."""
     with ProcessPoolExecutor(max_workers=min(8, os.cpu_count() or 1),
                              mp_context=multiprocessing.get_context("spawn")) as pool:
-        return [f for chunk in pool.map(fn, starts, [min(a + RENDER_CHUNK, n) for a in starts])
-                for f in chunk]
+        jobs = [[pool.submit(fn, a, min(a + RENDER_CHUNK, n)) for a in range(0, n, RENDER_CHUNK)]
+                for fn, n in streams]
+        return [[f for job in chunks for f in job.result()] for chunks in jobs]
+
+
+def render(fn, n):
+    """fn's frames [0, n) rendered in chunks by up to 8 worker processes."""
+    return render_all((fn, n))[0]
+
+
+def _json_value(x):
+    """numpy scalars and arrays as JSON values (json.dump's default)."""
+    if isinstance(x, np.integer):
+        return int(x)
+    if isinstance(x, np.bool_):
+        return bool(x)
+    if isinstance(x, np.ndarray):
+        return x.tolist()
+    return float(x)
+
+
+class SideProcess:
+    """side_work in a second process on the same card: this script with
+    ``--side DIR``, on ``frames`` (phase 7's first SIDE_FRAMES, written to
+    DIR/frames.npz), its output going to DIR/side.log, which join() or
+    stop() prints, and its numbers to DIR/side.json."""
+
+    def __init__(self, frames):
+        self.dir = tempfile.mkdtemp(prefix="chip_smoke_side_")
+        np.savez(os.path.join(self.dir, "frames.npz"), left=np.stack([f[0] for f in frames]),
+                 right=np.stack([f[1] for f in frames]),
+                 ts=np.asarray([f[2] for f in frames], np.float64))
+        self.log_path = os.path.join(self.dir, "side.log")
+        self.out = open(self.log_path, "w")
+        self.proc = subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--side", self.dir, repr(T_START)],
+            stdout=self.out, stderr=subprocess.STDOUT)
+        atexit.register(self.stop)
+
+    def join(self):
+        """Wait for the second process, at most until SIDE_DEADLINE_S after
+        the script began; print its log; return its numbers."""
+        t0 = time.perf_counter()
+        try:
+            rc = self.proc.wait(timeout=max(1.0, SIDE_DEADLINE_S - (t0 - T_START)))
+        except subprocess.TimeoutExpired:
+            rc = None
+        waited = time.perf_counter() - t0
+        path = os.path.join(self.dir, "side.json")
+        numbers = None
+        if rc == 0:
+            with open(path) as f:
+                numbers = json.load(f)
+        self.stop()
+        if rc is None:
+            raise SystemExit(f"chip_smoke: the second process still ran {SIDE_DEADLINE_S} s "
+                             f"after the start")
+        if rc != 0:
+            raise SystemExit(f"chip_smoke: the second process failed, exit {rc}")
+        log(f"[side] waited {waited:.1f} s for the second process; its seconds a part "
+            + json.dumps(numbers["seconds"]))
+        return numbers
+
+    def stop(self):
+        """Stop the second process if it still runs, print what it wrote and
+        remove its directory."""
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
+        if not self.out.closed:
+            self.out.close()
+            with open(self.log_path) as f:
+                sys.stdout.write(f.read())
+            sys.stdout.flush()
+        shutil.rmtree(self.dir, ignore_errors=True)
 
 
 def median_ms(fn, n=20):
@@ -1328,18 +1447,13 @@ def loop_phase(dev, cam_args, frames, loop="DBOW3"):
     assert ok_rel and err < 0.3, (ok_rel, err)
 
     # the loop event's device cost, replayed on the final map (its result
-    # is not used further): geometry check, correction without its GBA, the
-    # pose graph alone, the GBA's dispatch and one chunk
+    # is not used further): geometry check, the pose graph (all but ~2 % of
+    # the correction's launches), the GBA's dispatch and one chunk
     e = events[0]
     kf, cand = slam.map.keyframes.get(e["kf"]), slam.map.keyframes.get(e["cand"])
     cost = {}
     if kf is not None and cand is not None:
         cost["geometry_check"] = profile_call(lambda: lc.geometry_check(kf, cand))
-        dispatch = gba.dispatch
-        gba.dispatch = lambda *a, **k: None
-        cost["correct_loop_without_gba"] = profile_call(lambda: lc.correct_loop(kf, cand,
-                                                                               e["S12"]))
-        gba.dispatch = dispatch
     args, kw = pgo_args
     cost["pgo"] = profile_call(lambda: pgo(*args, **kw))
     cost["gba_dispatch"] = profile_call(lambda: gba.dispatch(slam.map))
@@ -2748,6 +2862,17 @@ def depth_session(dev, est, frames, cam, ds, integ=None, stereo=True, tag="[dept
         reset()
 
     est.infer, slam.reset = counted_infer, counted_reset
+    # the keyframe cadence: the frames that made a keyframe, and the back
+    # end's readiness at each keyframe decision (the CPU's deterministic
+    # model and the card's wall-clock budget part here)
+    idle, kf_frames = [], []
+    lm_idle = slam.tracking._local_mapping_idle
+
+    def logged_idle():
+        idle.append(lm_idle())
+        return idle[-1]
+
+    slam.tracking._local_mapping_idle = logged_idle
     n = len(frames)
     torch.cuda.synchronize()
     fast_nms.launches = 0
@@ -2762,6 +2887,9 @@ def depth_session(dev, est, frames, cam, ds, integ=None, stereo=True, tag="[dept
         slam.track(img, img_right=img_r if stereo else None, frame_id=i, timestamp=ts,
                    next_input=nxt)
         lats.append(time.perf_counter() - t1)
+        kf = slam.tracking.kf_ref
+        if kf is not None and kf.id == i:
+            kf_frames.append(i)
     slam.finish()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
@@ -2779,7 +2907,8 @@ def depth_session(dev, est, frames, cam, ds, integ=None, stereo=True, tag="[dept
                keyframes=slam.map.num_keyframes(), points=slam.map.num_points(), ate=ate,
                length_m=est_len, gt_length_m=gt_len, estimates=len(calls),
                estimates_with_right=sum(calls), p50_ms=float(np.percentile(lat_ms, 50)),
-               wall_s=wall)
+               wall_s=wall, keyframe_frames=kf_frames, idle_decisions=sum(idle),
+               decisions=len(idle))
     if integ is not None:
         out.update(snapshots=len(integ.snapshots), integrated=integ.volume.num_integrated,
                    voxels=integ.volume.num_voxels())
@@ -2792,6 +2921,8 @@ def depth_session(dev, est, frames, cam, ds, integ=None, stereo=True, tag="[dept
         f"{wall:.1f} s" + (f"; dense: {out['snapshots']} keyframes handed over, "
                            f"{out['integrated']} integrated, {out['voxels']} voxels"
                            if integ is not None else ""))
+    log(f"{tag} keyframes made at frames {kf_frames}; the back end idle at "
+        f"{out['idle_decisions']} of {out['decisions']} keyframe decisions")
     log(f"{tag} stage totals: " + json.dumps(
         {mod: {k: round(v["total_ms"], 1) for k, v in st.items()}
          for mod, st in slam.timings().items()}))
@@ -2799,9 +2930,10 @@ def depth_session(dev, est, frames, cam, ds, integ=None, stereo=True, tag="[dept
     return out
 
 
-def depth_phase(dev, frames, cam, ds):
-    """Phase 17: the depth models card against CPU (a), the SGBM upgrade of
-    a monocular session with the TSDF (b), the learned upgrades (c)."""
+def depth_phase(dev, frames, cam, ds, models=None):
+    """Phase 17: the depth models card against CPU (a; ``models``, the
+    second process's numbers, where they are given), the SGBM upgrade of a
+    monocular session with the TSDF (b), the learned upgrades (c)."""
     import torch
 
     from pyslam_tpu_torch.config_parameters import Parameters
@@ -2810,7 +2942,7 @@ def depth_phase(dev, frames, cam, ds):
     from pyslam_tpu_torch.depth_estimation.depth_estimator import (DepthEstimatorType,
                                                                    depth_estimator_factory)
 
-    out = {"models": depth_models_phase(dev, frames)}
+    out = {"models": models if models else depth_models_phase(dev, frames)}
     # 17b: the TSDF on the estimated depth (phase 9's integrator)
     saved = Parameters.as_dict()
     try:
@@ -2826,7 +2958,8 @@ def depth_phase(dev, frames, cam, ds):
     sg = out["sgbm_upgrade"] = depth_session(dev, est, frames, cam, ds, integ=integ)
     n = len(frames)
     log(f"[depth] SGBM upgrade: the JAX package on the CPU {WITNESS_DEPTH_SGBM[0]}/{n} "
-        f"tracked, {WITNESS_DEPTH_SGBM[1]} resets, ATE {WITNESS_DEPTH_SGBM[2]} m; ceiling "
+        f"tracked, {WITNESS_DEPTH_SGBM[1]} resets, ATE {WITNESS_DEPTH_SGBM[2]} m (under the "
+        f"port's readiness rule {WITNESS_DEPTH_SGBM_PORT_READINESS[2]} m); ceiling "
         f"{DEPTH_SGBM_ATE_MAX:.4f} m")
     assert sg["sensor"] == "RGBD" and est.device.type == "cuda", sg
     assert sg["n_tracked"] == n and sg["launches"] == n, sg
@@ -3113,7 +3246,7 @@ def semantic_session(dev, frames, cam, ds, sem, integ=None):
     return out, slam, segmented
 
 
-def semantic_phase(dev, frames, cam, ds, voxels_per_frame=None):
+def semantic_phase(dev, frames, cam, ds, voxels_per_frame=None, models=None):
     """Phase 18: the semantic models card against CPU (a); the weight-free
     semantic session on phase 7's stream with the semantic integrator and
     the BA weighting, with its floor, then one keyframe's semantic
@@ -3131,7 +3264,7 @@ def semantic_phase(dev, frames, cam, ds, voxels_per_frame=None):
                                                                   semantic_segmentation_factory)
     from pyslam_tpu_torch.slam.map import Map
 
-    out = {"models": semantic_models_phase(dev, frames)}
+    out = {"models": models if models else semantic_models_phase(dev, frames)}
     # 18b: the weight-free session with a floor
     frames_b = frames[:SEM_FRAMES]
     n = len(frames_b)
@@ -3712,21 +3845,26 @@ def dense_entry_phase(dev):
     return out
 
 
-def reconstruction_phase(dev, rgbd_frames, cam_rgbd, ds_rgbd):
-    """Phase 19: 3D reconstruction from views and Gaussian-splatting dense
-    mapping."""
+def scene_views():
+    """19a's SCENE_VIEWS views: every third frame of a small monocular line."""
     from pyslam_tpu_torch.io.dataset_types import SensorType
     from pyslam_tpu_torch.io.synthetic import SyntheticDataset
 
     ds = SyntheticDataset(num_frames=SCENE_VIEWS * 3, sensor_type=SensorType.MONOCULAR,
                           trajectory="line", step=0.5)
-    views = [ds.getImage(i * 3) for i in range(SCENE_VIEWS)]
-    out = {"models": recon_models_phase(dev, views)}
-    out.update(scene_phase(dev))
+    return [ds.getImage(i * 3) for i in range(SCENE_VIEWS)]
+
+
+def reconstruction_phase(dev, rgbd_frames, cam_rgbd, ds_rgbd, side=None):
+    """Phase 19: 3D reconstruction from views and Gaussian-splatting dense
+    mapping; the parts of side_work taken from ``side``, the second
+    process's numbers, where it is given."""
+    out = {"models": side["recon_models"] if side else recon_models_phase(dev, scene_views())}
+    out.update(side["scene"] if side else scene_phase(dev))
     out["gs"] = gs_phase(dev, rgbd_frames[:GS_FRAMES], cam_rgbd, ds_rgbd)
-    out["gs_heldout"] = gs_heldout(dev)
-    out["gs_drift"] = gs_drift(dev)
-    out["dense_entry"] = dense_entry_phase(dev)
+    for key, run in (("gs_heldout", gs_heldout), ("gs_drift", gs_drift),
+                     ("dense_entry", dense_entry_phase)):
+        out[key] = side[key] if side else run(dev)
     return out
 
 
@@ -4457,6 +4595,7 @@ def eval_grid_phase(dev, cam):
 
     import torch
 
+    from pyslam_tpu_torch.evaluation import manager
     from pyslam_tpu_torch.evaluation.manager import EvalConfig, SlamEvaluationManager
     from pyslam_tpu_torch.features.tracker import FeatureTrackerConfig
     from pyslam_tpu_torch.ops.fast import fast_nms
@@ -4487,12 +4626,33 @@ def eval_grid_phase(dev, cam):
                                                                num_levels=N_LEVELS)},
                          runs_per_dataset=1, loop_detector=None)
         torch.use_deterministic_algorithms(True, warn_only=True)
+        # how far each serial cell places frame 1 from frame 0: it is tracked
+        # without a motion model, and where its pose LM stalls the cell's
+        # whole line follows (tests/torch_eval_grid_witness.py)
+        first_step = []
+
+        class FirstStepSlam(manager.Slam):
+            def track(self, *a, frame_id=0, **kw):
+                res = super().track(*a, frame_id=frame_id, **kw)
+                if frame_id == 1:
+                    first_step.append(float(np.linalg.norm(
+                        np.linalg.inv(self.tracking.f_prev.Tcw)[:3, 3])))
+                return res
+
         try:
             mgr = SlamEvaluationManager(cfg, out_dir=os.path.join(root, "serial"), device=dev)
             t0 = time.perf_counter()
-            serial = {ds["name"]: mgr._single_run(ds, "orb2", cfg.presets["orb2"], 0,
-                                                  deterministic=True) for ds in datasets}
+            slam_cls, manager.Slam = manager.Slam, FirstStepSlam
+            try:
+                serial = {ds["name"]: mgr._single_run(ds, "orb2", cfg.presets["orb2"], 0,
+                                                      deterministic=True) for ds in datasets}
+            finally:
+                manager.Slam = slam_cls
             out["serial_s"] = time.perf_counter() - t0
+            out["frame1_m"] = first_step
+            log("[eval-grid] serial runs: frame 1 placed " + ", ".join(
+                f"{d:.4f} m" for d in first_step) + " from frame 0 (ground truth "
+                + ", ".join(f"{0.3 + 0.02 * k:.2f} m" for k in range(EVAL_GRID_SEQS)) + ")")
             for tag, devices in (("one thread", [dev]), ("two threads", [dev, dev])):
                 mgr = SlamEvaluationManager(cfg, out_dir=os.path.join(root, tag), device=dev)
                 torch.cuda.synchronize()
@@ -4637,8 +4797,9 @@ def frontend_step_phase(dev, frames, ds):
     return out
 
 
-def distributed_phase(dev, state, frames, ds):
-    """Phase 21; returns its numbers, having checked every part of it."""
+def distributed_phase(dev, state, frames, ds, eval_grid=None):
+    """Phase 21; returns its numbers, having checked every part of it; 21c's
+    taken from ``eval_grid``, the second process's, where it is given."""
     from pyslam_tpu_torch.config_parameters import Parameters
     from pyslam_tpu_torch.slam.camera import PinholeCamera
 
@@ -4651,7 +4812,7 @@ def distributed_phase(dev, state, frames, ds):
     t["21a"] = time.perf_counter() - t0
     out["sharded_gba"] = sharded_gba_phase(dev, state, cam)
     t["21b"] = time.perf_counter() - t0 - sum(t.values())
-    out["eval_grid"] = eval_grid_phase(dev, cam)
+    out["eval_grid"] = eval_grid if eval_grid else eval_grid_phase(dev, cam)
     Parameters.set_from_dict(saved)
     t["21c"] = time.perf_counter() - t0 - sum(t.values())
     out["frontend_step"] = frontend_step_phase(dev, frames, ds)
@@ -4675,6 +4836,56 @@ def distributed_phase(dev, state, frames, ds):
     failed += [f"21d: {f}" for f in out["frontend_step"]["failed"]]
     assert not failed, failed
     return out
+
+
+def side_work(dev, frames):
+    """The parts of phases 16-21 that need nothing of the first process but
+    phase 7's first SIDE_FRAMES stereo ``frames``: (key, call) in their
+    order in the phases."""
+    from pyslam_tpu_torch.slam.camera import PinholeCamera
+
+    ds = bench_stream()
+    cam = PinholeCamera(ds.w, ds.h, ds.fx, ds.fy, ds.cx, ds.cy, fps=ds.fps,
+                        bf=ds.fx * ds.baseline, depth_threshold=35.0)
+    return [("loftr", lambda: loftr_phase(dev, frames)), ("vpr", lambda: vpr_phase(dev, frames)),
+            ("depth_models", lambda: depth_models_phase(dev, frames)),
+            ("semantic_models", lambda: semantic_models_phase(dev, frames)),
+            ("recon_models", lambda: recon_models_phase(dev, scene_views())),
+            ("scene", lambda: scene_phase(dev)), ("gs_heldout", lambda: gs_heldout(dev)),
+            ("gs_drift", lambda: gs_drift(dev)), ("dense_entry", lambda: dense_entry_phase(dev)),
+            ("train", lambda: trainer_phase(dev)), ("eval_grid", lambda: eval_grid_phase(dev, cam))]
+
+
+def side_main(out_dir, t_start):
+    """The second process (``--side DIR T_START``): side_work on the card
+    with SIDE_THREADS CPU threads at niceness SIDE_NICE, on the frames in
+    DIR/frames.npz, its numbers written to DIR/side.json once every part
+    has passed."""
+    global T_START
+    T_START = t_start
+    import torch
+
+    os.nice(SIDE_NICE)
+    torch.set_num_threads(SIDE_THREADS)
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: no CUDA device; the port runs on the GPU only")
+    import pyslam_tpu_torch  # noqa: F401  (precision policy)
+    from pyslam_tpu_torch import _build
+
+    _build.load()
+    dev = torch.device("cuda", 0)
+    with np.load(os.path.join(out_dir, "frames.npz")) as z:
+        frames = [(z["left"][i], z["right"][i], z["ts"][i].item()) for i in range(len(z["ts"]))]
+    numbers, seconds = {}, {}
+    for key, run in side_work(dev, frames):
+        t0 = time.perf_counter()
+        numbers[key] = run()
+        seconds[key] = round(time.perf_counter() - t0, 1)
+    numbers["seconds"] = seconds
+    path = os.path.join(out_dir, "side.json")
+    with open(path + ".part", "w") as f:
+        json.dump(numbers, f, default=_json_value)
+    os.replace(path + ".part", path)
 
 
 def main():
@@ -4814,9 +5025,14 @@ def main():
     # ---------------------------------------------------------------- 7
     PHASE_START.append((7, time.perf_counter()))
     t0 = time.perf_counter()
-    frames = render(render_main_frames, N_FRAMES)
-    log(f"[main] rendered {N_FRAMES} stereo frames {H}x{W} in "
-        f"{time.perf_counter() - t0:.1f} s (worker processes)")
+    main_rgbd, loop_frames = render_all((render_main_rgbd_frames, N_FRAMES),
+                                        (render_loop_frames, LOOP_FRAMES))
+    frames = [(left, right, ts) for left, right, ts, _ in main_rgbd]
+    rgbd_frames = [(left, depth, ts) for left, _, ts, depth in main_rgbd]
+    del main_rgbd
+    log(f"[main] rendered {N_FRAMES} stereo frames {H}x{W} with the left images' depth and "
+        f"the loop stage's {LOOP_FRAMES} in {time.perf_counter() - t0:.1f} s (one pool of "
+        f"worker processes)")
     slam = Slam(cam, FeatureTrackerConfig(num_features=N_FEATURES, num_levels=N_LEVELS),
                 sensor_type=SensorType.STEREO, device=dev)
     integ = build_integrator(cam, dev)
@@ -4895,13 +5111,12 @@ def main():
 
     # ---------------------------------------------------------------- 8
     PHASE_START.append((8, time.perf_counter()))
-    t0 = time.perf_counter()
-    loop_frames = render(render_loop_frames, LOOP_FRAMES)
-    log(f"[loop] rendered {LOOP_FRAMES} stereo frames {H}x{W} in "
-        f"{time.perf_counter() - t0:.1f} s (worker processes)")
     cam_args = (ds.w, ds.h, ds.fx, ds.fy, ds.cx, ds.cy)
     loop_launches = loop_phase(dev, cam_args, loop_frames)["launches"]
     torch.cuda.empty_cache()   # the frames stay for phase 14c
+    side = SideProcess(frames[:SIDE_FRAMES])
+    log("[side] the second process started: 16a, 16c, 17a, 18a, 19a-c, 19d's held-out and "
+        "drift witnesses, 19e, 20a and 21c")
 
     # ---------------------------------------------------------------- 9
     PHASE_START.append((9, time.perf_counter()))
@@ -4909,10 +5124,6 @@ def main():
     from pyslam_tpu_torch.dense.volumetric_integrator import (
         VolumetricIntegratorType, volumetric_integrator_factory)
 
-    t0 = time.perf_counter()
-    rgbd_frames = render(render_rgbd_frames, N_FRAMES)
-    log(f"[rgbd] rendered {N_FRAMES} frames {H}x{W} with depth in "
-        f"{time.perf_counter() - t0:.1f} s (worker processes)")
     ds_rgbd = bench_stream("RGBD")
     cam_rgbd = PinholeCamera(ds.w, ds.h, ds.fx, ds.fy, ds.cx, ds.cy, fps=ds.fps,
                              bf=ds.fx * BASELINE_M, depth_threshold=35.0)
@@ -5009,9 +5220,9 @@ def main():
 
     # ---------------------------------------------------------------- 16
     PHASE_START.append((16, time.perf_counter()))
-    dense = {"loftr": loftr_phase(dev, rgbd_frames),
-             "mast3r": mast3r_phase(dev, frames, cam, ds),
-             "vpr": vpr_phase(dev, frames)}
+    side_numbers = side.join()
+    dense = {"loftr": side_numbers["loftr"], "mast3r": mast3r_phase(dev, frames, cam, ds),
+             "vpr": side_numbers["vpr"]}
     vl = dense["vlad_stage"] = loop_phase(dev, cam_args, loop_frames, loop="VLAD")
     del loop_frames
     log(f"[vlad] loop stage: {vl['n_tracked']}/{LOOP_FRAMES} tracked, {vl['loops_closed']} "
@@ -5023,22 +5234,23 @@ def main():
 
     # ---------------------------------------------------------------- 17
     PHASE_START.append((17, time.perf_counter()))
-    depth = depth_phase(dev, frames, cam, ds)
+    depth = depth_phase(dev, frames, cam, ds, models=side_numbers["depth_models"])
     print(json.dumps({"depth": depth}, default=float), flush=True)
 
     # ---------------------------------------------------------------- 18
     PHASE_START.append((18, time.perf_counter()))
-    semantic = semantic_phase(dev, frames, cam, ds, voxels_per_frame)
+    semantic = semantic_phase(dev, frames, cam, ds, voxels_per_frame,
+                              models=side_numbers["semantic_models"])
     print(json.dumps({"semantic": semantic}, default=float), flush=True)
 
     # ---------------------------------------------------------------- 19
     PHASE_START.append((19, time.perf_counter()))
-    recon = reconstruction_phase(dev, rgbd_frames, cam_rgbd, ds_rgbd)
+    recon = reconstruction_phase(dev, rgbd_frames, cam_rgbd, ds_rgbd, side=side_numbers)
     print(json.dumps({"reconstruction": recon}, default=float), flush=True)
 
     # ---------------------------------------------------------------- 20
     PHASE_START.append((20, time.perf_counter()))
-    trainers = {"train": trainer_phase(dev)}
+    trainers = {"train": side_numbers["train"]}
     trainers["large_ba"], lba_slam = large_ba_phase(dev, frames[:LARGE_BA_FRAMES], cam)
     trainers["bag"] = bag_phase(dev, frames[:BAG_FRAMES], cam)
     trainers["viewer"] = viewer_phase(lba_slam)
@@ -5052,7 +5264,7 @@ def main():
 
     # ---------------------------------------------------------------- 21
     PHASE_START.append((21, time.perf_counter()))
-    dist = distributed_phase(dev, saved_state, frames, ds)
+    dist = distributed_phase(dev, saved_state, frames, ds, eval_grid=side_numbers["eval_grid"])
     dist["wall_s"] = time.perf_counter() - T_START
     ends = [t for _, t in PHASE_START[1:]] + [time.perf_counter()]
     dist["phase_s"] = {ph: round(end - t, 1) for (ph, t), end in zip(PHASE_START, ends)}
@@ -5097,5 +5309,8 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--side"]:
+        side_main(sys.argv[2], float(sys.argv[3]))
+    else:
+        main()
     sys.exit(0)

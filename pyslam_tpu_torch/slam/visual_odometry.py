@@ -97,3 +97,7 @@ class VisualOdometry:
     @property
     def trajectory(self):
         return np.asarray([T[:3, 3] for T in self.poses])
+
+
+# the reference's class name, kept as an alias
+VisualOdometryEducational = VisualOdometry

@@ -24,7 +24,11 @@ ORB2 --features 500 --levels 4 --frames 2``).  From frame 1 on the
 inlier counts part by one (153 against 154), and at frame 10 the
 reference counts 23 tracked close points under the threshold of 25 and
 makes a keyframe where the port counts 25 and makes none (its next is at
-frame 12): 4 keyframes against 3 over these 11 frames.  Both meet the
+frame 12): 4 keyframes against 3 over these 11 frames.  Given the
+reference's pyramid (``tests.torch_parity.
+port_extracts_from_the_reference_pyramid``) the port makes its keyframes
+at the reference's frames over all 11 (0, 3, 7 and 10), which pins the
+parting at frame 10 on the pyramid.  Both meet the
 reference test's floors (ATE is not among them; the metric-scale floor
 is the trajectory length within 25 % of the ground truth's, with no
 alignment).
@@ -34,6 +38,8 @@ voxel table in both packages' integrators, bit for bit, from the same
 depth.  The tests after the upgrade's are in
 tests/test_torch_depth_in_slam_paths.py.
 """
+
+import functools
 
 import jax
 import numpy as np
@@ -54,7 +60,8 @@ from pyslam_tpu_torch.io.dataset_types import SensorType
 from pyslam_tpu_torch.io.synthetic import SyntheticDataset
 from pyslam_tpu_torch.slam.camera import PinholeCamera
 from pyslam_tpu_torch.slam.slam import Slam
-from tests.torch_parity import reference_polls_like_the_port
+from tests.torch_parity import (port_extracts_from_the_reference_pyramid,
+                                reference_polls_like_the_port)
 from tests.torch_parity import shared_jax_compile_cache  # noqa: F401  (module fixture)
 
 N_FRAMES = 11
@@ -94,14 +101,34 @@ def upgraded():
                                                   max_disparity=64))
         ref_tracked = _run(ref, jds)
     ds = SyntheticDataset(sensor_type=SensorType.STEREO, **kw)
-    cam = _cam(PinholeCamera, ds)
-    est = depth_estimator_factory(DepthEstimatorType.DEPTH_SGBM, camera=cam, max_disparity=64,
-                                  device="cpu")
-    slam = Slam(cam, FeatureTrackerConfig(num_features=500, num_levels=4),
-                sensor_type=SensorType.MONOCULAR, depth_estimator=est, device="cpu")
+    # each frame is rendered and its SGBM depth estimated once: the session
+    # given the reference's pyramid takes them again
+    ds.getImage = functools.lru_cache(maxsize=None)(ds.getImage)
+    ds.getImageRight = functools.lru_cache(maxsize=None)(ds.getImageRight)
+    slam = _port_upgrade(ds)
     assert slam.sensor_type == SensorType.RGBD
     tracked = _run(slam, ds)
     return ref, ref_tracked, slam, tracked, ds
+
+
+def _port_upgrade(ds, est=None):
+    """The port's upgraded session; a new SGBM estimator remembers its
+    depth for each stereo pair it is given."""
+    cam = _cam(PinholeCamera, ds)
+    if est is None:
+        est = depth_estimator_factory(DepthEstimatorType.DEPTH_SGBM, camera=cam,
+                                      max_disparity=64, device="cpu")
+        infer, seen = est.infer, {}
+
+        def remembered(img, img_right=None):
+            key = (np.asarray(img).tobytes(), np.asarray(img_right).tobytes())
+            if key not in seen:
+                seen[key] = infer(img, img_right=img_right)
+            return seen[key]
+
+        est.infer = remembered
+    return Slam(cam, FeatureTrackerConfig(num_features=500, num_levels=4),
+                sensor_type=SensorType.MONOCULAR, depth_estimator=est, device="cpu")
 
 
 def test_depth_estimator_upgrades_mono_to_rgbd(upgraded):
@@ -129,3 +156,15 @@ def test_upgrade_tracks_as_the_reference(upgraded):
         (kf_frames, ref_kf_frames)
     assert abs(slam.map.num_keyframes() - ref.map.num_keyframes()) <= 1, \
         (slam.map.num_keyframes(), ref.map.num_keyframes())
+
+
+def test_upgrade_keyframes_as_the_reference_given_its_pyramid(upgraded):
+    """With the reference's image pyramid, the port's session tracks the
+    same frames and makes its keyframes at the same frames as the
+    reference's, past frame 10 where the two part on their own pyramids."""
+    _, (ref_tracked, ref_kf_frames), slam, _, ds = upgraded
+    with port_extracts_from_the_reference_pyramid():
+        tracked, kf_frames = _run(_port_upgrade(ds, est=slam.depth_estimator), ds)
+    assert FIRST_KF_APART in ref_kf_frames
+    assert tracked == ref_tracked and kf_frames == ref_kf_frames == [0, 3, 7, 10], \
+        (kf_frames, ref_kf_frames)

@@ -96,6 +96,156 @@ def test_no_jax_import_in_source(path):
             assert root not in ("jax", "jaxlib", "pyslam_tpu", "flax"), f"{path}: {n}"
 
 
+JAX_PKG = os.path.join(ROOT, "pyslam_tpu")
+
+
+def _top_level(path, with_imports=False):
+    """The names a module binds at its top level (defs, classes,
+    assignments; with ``with_imports`` its imports too), and for each class
+    the names its body defines."""
+    tree = ast.parse(open(path).read(), path)
+    names, members = set(), {}
+    body = list(tree.body)
+    while body:
+        node = body.pop(0)
+        if isinstance(node, (ast.If, ast.Try)):
+            body += node.body + node.orelse + getattr(node, "finalbody", [])
+            body += [s for h in getattr(node, "handlers", []) for s in h.body]
+        elif isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef, ast.ClassDef)):
+            names.add(node.name)
+            if isinstance(node, ast.ClassDef):
+                members[node.name] = {n.name for n in node.body
+                                      if isinstance(n, (ast.FunctionDef, ast.AsyncFunctionDef))}
+        elif isinstance(node, (ast.Assign, ast.AnnAssign)):
+            for t in (node.targets if isinstance(node, ast.Assign) else [node.target]):
+                names |= {e.id for e in ast.walk(t) if isinstance(e, ast.Name)}
+        elif with_imports and isinstance(node, (ast.Import, ast.ImportFrom)):
+            names |= {(a.asname or a.name).split(".")[0] for a in node.names}
+    return names, members
+
+
+# Public names of a JAX module that the port keeps under another name or in
+# another module ("module::Name" or "module::Class.method" in the port).
+MOVED = {
+    ("io/dataset.py", "SyntheticDataset"): "io/synthetic.py::SyntheticDataset",
+    ("io/dataset.py", "SyntheticWorld"): "io/synthetic.py::SyntheticWorld",
+    ("models/netvlad.py", "VGG16Conv5"): "models/netvlad.py::vgg16_conv5",
+    ("ops/geometry.py", "backproject"): "slam/camera.py::PinholeCamera.backproject_points",
+    ("ops/pallas_fast.py", "fast_score_map_pallas"): "ops/fast.py::fast_nms",
+    # the port's matchers take a (B,)-stacked batch themselves, gathered
+    # from the keyframe store by the caller
+    ("ops/slam_matching.py", "epipolar_triangulation_match_batch"):
+        "ops/slam_matching.py::epipolar_triangulation_match",
+    ("ops/slam_matching.py", "epipolar_triangulation_match_kfstore"):
+        "ops/slam_matching.py::epipolar_triangulation_match",
+    ("ops/slam_matching.py", "fuse_candidates_batch"): "ops/slam_matching.py::fuse_candidates_kfstore",
+    ("ops/slam_matching.py", "fuse_candidates_store_batch"):
+        "ops/slam_matching.py::fuse_candidates_kfstore",
+    **{(f"models/{m}.py", f"{n}_from_torch"): f"models/torch_convert.py::{n}_from_torch"
+       for m, n in (("aliked", "aliked"), ("d2net", "d2net"), ("disk", "disk"),
+                    ("keynet", "keynet"), ("r2d2", "r2d2"), ("resnet", "resnet"),
+                    ("cosplace", "cosplace"), ("deeplabv3", "deeplabv3"), ("loftr", "loftr"),
+                    ("patch_descriptors", "hardnet"), ("patch_descriptors", "sosnet"),
+                    ("patch_descriptors", "tfeat"))},
+}
+
+# Public names of the JAX package with no counterpart in the port, each with
+# its reason (ROADMAP.md section 1, item 5).
+XLA_HELPER = ("an XLA batching, fixed-shape or readback helper: eager PyTorch needs no "
+              "vmap, no padding ladder and no packed readback")
+FLAX_CONVERTER = ("a converter of torch weights into flax variable trees: the port loads "
+                  "torch state dicts as they are (models/torch_convert.py, interop.py)")
+UNCALLED = "called by no code of the JAX package outside its own tests"
+NOT_PORTED = {
+    "features/orb2.py": {"featuredata_to_numpy": XLA_HELPER},
+    "ops/fused_tracking.py": {
+        "track_frame_fused_meta": XLA_HELPER + " (the packed-meta readback)",
+        "track_frame_fused_chained": XLA_HELPER + " (the depth-2 chained tracking)"},
+    "slam/map.py": {"DELTA_BUCKET_FULL": XLA_HELPER + " (fixed delta-upload buckets)",
+                    "DELTA_BUCKET_POS": XLA_HELPER + " (fixed delta-upload buckets)"},
+    "utils/padding.py": dict.fromkeys(("bucket_size_linear", "cap_select", "fixed_shapes",
+                                       "pad_fixed", "pow2", "set_fixed_shape_policy"),
+                                      XLA_HELPER + " (the fixed-shape ladder)"),
+    "ops/pallas_fast.py": dict.fromkeys(("BAND", "HALO"),
+                                        "the Pallas kernel's band tiling: csrc/fast_nms.cu "
+                                        "tiles for Hopper"),
+    "ops/nms.py": {"NEG": "the -inf of XLA's top-k mask, written in place in the port"},
+    "models/lightglue.py": {"rotary_embed": "one product, xy @ w, written in place in "
+                                            "LightGlueNet.forward"},
+    "utils/profiling.py": dict.fromkeys(("DeviceCounters", "device_counters", "annotate"),
+                                        "counts XLA dispatches or names XLA trace spans: "
+                                        "torch.profiler counts the port's launches"),
+    "models/patch_descriptors.py": dict.fromkeys(("l2net_from_torch", "logpolar_from_torch"),
+                                                 FLAX_CONVERTER),
+    "models/torch_convert.py": dict.fromkeys(
+        ("dust3r_from_torch", "flatten_tree", "generic_from_torch", "lightglue_from_torch_file",
+         "load_variables_npz", "netvlad_from_torch", "save_variables_npz",
+         "superpoint_from_torch", "superpoint_from_torch_file", "xfeat_from_torch_file"),
+        FLAX_CONVERTER),
+    "ops/fast.py": {"harris_score_map": UNCALLED},
+    "ops/geometry.py": {"skew_matmul_F": UNCALLED,
+                        "project_points": UNCALLED + " (PinholeCamera.project_points wraps "
+                                                     "it, and nothing calls that)"},
+    "ops/image.py": dict.fromkeys(("laplacian_variance", "nearest_sample"), UNCALLED),
+    "ops/lie.py": dict.fromkeys(("quat_to_R", "se3_inv", "vee"), UNCALLED),
+    "ops/orb.py": dict.fromkeys(("brief_descriptors", "keypoint_angles"), UNCALLED),
+    "semantics/semantic_mapping.py": {"SemanticMappingType": UNCALLED},
+    "utils/logging.py": {"Logging": UNCALLED},
+}
+
+# JAX modules with no module of the same path in the port
+MODULE_MOVED = {"ops/pallas_fast.py": "ops/fast.py"}
+MODULE_NOT_PORTED = {
+    "tools/__init__.py": "tools/ is not ported: each tool's counterpart is named beside it",
+    "tools/tpu_smoke.py": "chip_smoke.py is the port's smoke run",
+    "tools/microprofile.py": "profile_slice.py replaces it",
+    "tools/convert_checkpoint.py": FLAX_CONVERTER,
+}
+
+
+def _jax_modules():
+    for dirpath, _, files in os.walk(JAX_PKG):
+        for f in files:
+            if f.endswith(".py"):
+                yield os.path.relpath(os.path.join(dirpath, f), JAX_PKG)
+
+
+def test_visual_odometry_educational_is_an_alias():
+    from pyslam_tpu_torch.slam.visual_odometry import (VisualOdometry,
+                                                       VisualOdometryEducational)
+
+    assert VisualOdometryEducational is VisualOdometry
+
+
+@pytest.mark.parametrize("module", sorted(_jax_modules()))
+def test_every_public_name_has_a_counterpart(module):
+    """Every public top-level name of the JAX module is bound at the top
+    level of the port's module of the same path (or of ``MODULE_MOVED``'s),
+    or is kept elsewhere (``MOVED``, checked to exist), or has no
+    counterpart for the reason ``NOT_PORTED`` gives."""
+    if module in MODULE_NOT_PORTED:
+        assert not os.path.exists(os.path.join(PKG, module)), module
+        return
+    port_module = MODULE_MOVED.get(module, module)
+    have, _ = _top_level(os.path.join(PKG, port_module), with_imports=True)
+    names, _ = _top_level(os.path.join(JAX_PKG, module))
+    missing = []
+    for name in sorted(n for n in names if not n.startswith("_")):
+        if name in have or name in NOT_PORTED.get(module, {}):
+            continue
+        target = MOVED.get((module, name))
+        if target is None:
+            missing.append(name)
+            continue
+        path, qual = target.split("::")
+        top, members = _top_level(os.path.join(PKG, path), with_imports=True)
+        cls, _, member = qual.partition(".")
+        assert cls in top and (not member or member in members.get(cls, ())), target
+    assert not missing, f"{module}: {missing} have no counterpart in the port"
+    for name in NOT_PORTED.get(module, {}):
+        assert name in names and name not in have, (module, name)
+
+
 def test_import_builds_nothing():
     """Importing the package must not compile or load the CUDA kernels, nor
     the native observation graph (built at the first ``Map``)."""

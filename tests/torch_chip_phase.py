@@ -19,12 +19,17 @@ bag session and the viewers' export; ``20a`` the trainers alone) or 21
 (phase 13, whose saved state it reads, then the native mirror, the sharded
 GBA, the evaluation grid and frontend_step).
 
-    PYTHONPATH=. python3 tests/torch_chip_phase.py 8|12|...|19|19a|20|20a|21
+    PYTHONPATH=. python3 tests/torch_chip_phase.py 8|12|...|19|19a|20|20a|21 [--log-kf]
+    PYTHONPATH=. python3 tests/torch_chip_phase.py 13 --keep-state DIR
 
 Builds the kernels, renders the phase's frames as chip_smoke.py does and
 runs its function for the phase; prints what the phase prints.  Run from
 the root of a tree (the repository, or an unpacked ``git archive`` of
 another commit, to compare two commits in one call on one card).
+``--log-kf`` sets the port's ``kLogKeyFrameDecision``, so that every
+session of the phase prints each frame's ``[kf?]`` keyframe decision;
+``--keep-state DIR`` copies phase 13's saved state to DIR (its
+``map.json`` is what ``tests/torch_gba_placement.py --map`` reads).
 """
 
 import json
@@ -43,6 +48,10 @@ def main():
     from pyslam_tpu_torch.slam.camera import PinholeCamera
 
     arg = sys.argv[1]
+    if "--log-kf" in sys.argv[2:]:
+        from pyslam_tpu_torch.config_parameters import Parameters
+
+        Parameters.kLogKeyFrameDecision = True
     phase = int(arg[:2]) if arg[:2] in ("16", "17", "18", "19", "20", "21") else int(arg)
     dev = torch.device("cuda", 0)
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -58,7 +67,10 @@ def main():
         frames = [(ds.getImage(i), ds.getImageRight(i), ds.getTimestamp(i))
                   for i in range(cs.N_FRAMES)]
         t0 = time.time()
-        print(json.dumps({"entry": cs.entry_phase(dev, frames, ds)}, default=float), flush=True)
+        keep = (sys.argv[sys.argv.index("--keep-state") + 1] if "--keep-state" in sys.argv
+                else None)
+        print(json.dumps({"entry": cs.entry_phase(dev, frames, ds, keep_state=keep)},
+                         default=float), flush=True)
     elif phase == 12:
         cam = PinholeCamera(ds.w, ds.h, ds.fx, ds.fy, ds.cx, ds.cy, fps=ds.fps,
                             bf=ds.fx * ds.baseline, depth_threshold=35.0)
@@ -140,15 +152,8 @@ def main():
         print(json.dumps({"semantic": out}, default=float), flush=True)
     elif phase == 19:
         if arg == "19a":
-            from pyslam_tpu_torch.io.dataset_types import SensorType
-            from pyslam_tpu_torch.io.synthetic import SyntheticDataset
-
-            sds = SyntheticDataset(num_frames=cs.SCENE_VIEWS * 3,
-                                   sensor_type=SensorType.MONOCULAR, trajectory="line",
-                                   step=0.5)
-            views = [sds.getImage(i * 3) for i in range(cs.SCENE_VIEWS)]
             t0 = time.time()
-            out = {"models": cs.recon_models_phase(dev, views)}
+            out = {"models": cs.recon_models_phase(dev, cs.scene_views())}
         else:
             rgbd_frames = cs.render(cs.render_rgbd_frames, cs.GS_FRAMES)
             cam_rgbd = PinholeCamera(ds.w, ds.h, ds.fx, ds.fy, ds.cx, ds.cy, fps=ds.fps,

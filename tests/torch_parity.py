@@ -213,6 +213,39 @@ def reference_polls_like_the_port():
 
 
 @contextlib.contextmanager
+def port_extracts_from_the_reference_pyramid():
+    """Make the port's ORB2 extraction start from the JAX package's image
+    pyramid (``pyslam_tpu.ops.image.build_pyramid``, x64 off) for every
+    image, as ``tests/torch_orb2_ties.py`` does for one frame.  The port's
+    pyramid column pass keeps one FMA chain, within 3.05e-5 grey levels of
+    the reference's (an accepted deviation, ROADMAP.md section 3); this
+    takes it out of a comparison of the two packages' sessions.  The
+    pyramid is jitted, as inside the reference's extraction (bit for bit
+    the op-by-op result, and much faster)."""
+    import jax
+    import jax.numpy as jnp
+
+    from pyslam_tpu.ops import image as jax_image
+    from pyslam_tpu_torch.features import orb2
+
+    orig = orb2.extract_batch
+    build = jax.jit(jax_image.build_pyramid, static_argnums=(1, 2))
+
+    def extract_batch(imgs, num_features, num_levels, scale, fast_th, cell, per_cell):
+        with jax.enable_x64(False):
+            pyrs = [build(jnp.asarray(np_(img)), num_levels, scale) for img in imgs]
+        pyr = [torch.stack([torch.from_numpy(np.array(p[lv])) for p in pyrs]).to(imgs.device)
+               for lv in range(num_levels)]
+        return orb2.extract_pyramid(pyr, num_features, scale, fast_th, cell, per_cell)
+
+    orb2.extract_batch = extract_batch
+    try:
+        yield
+    finally:
+        orb2.extract_batch = orig
+
+
+@contextlib.contextmanager
 def compiled_flax_init():
     """Build a JAX-package extractor with its flax ``init`` (and the
     ``apply`` calls of its constructor) compiled by ``jax.jit`` instead of

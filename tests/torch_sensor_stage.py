@@ -6,6 +6,8 @@ odometry, in the JAX package (on the CPU) or in the port.
                                        [--preset ORB2] [--loop DBOW3_INDEPENDENT]
                                        [--frames 60] [--device cpu|cuda]
                                        [--depth-estimator sgbm|depth_anything_v2|mast3r|...]
+                                       [--polls-like-the-port] [--log-kf]
+                                       [--reference-pyramid]
 
 Runs the configuration of chip_smoke.py phases 9, 10 and 12: the main
 stage's 376x1241 stream (fx 718.856, a 16000-point world at depth 4-80 m, a
@@ -33,9 +35,23 @@ both packages; a monocular one gets the left image only.  The ATE is
 metric (no scale in the alignment), and the trajectory's length is
 printed beside the ground truth's.  The witness of phase 17b's ATE ceiling
 and of 17c's reference numbers.
+
+``--polls-like-the-port`` runs the JAX package under
+``tests.torch_parity.reference_polls_like_the_port``: its back-end results
+ready by the port's CPU rule (``local_mapping.Pending``), not by
+``jax.Array.is_ready`` under the host's load, so that both packages'
+keyframe cadences follow one schedule.  ``--log-kf`` sets
+``kLogKeyFrameDecision`` in the package it runs, so that every frame prints
+its ``[kf?]`` line, and prints the frames that made a keyframe at the end.
+``--reference-pyramid`` hands the port's ORB2 extractor the JAX package's
+image pyramid for every image
+(``tests.torch_parity.port_extracts_from_the_reference_pyramid``): the
+port's pyramid column pass keeps one FMA chain, within 3.05e-5 grey levels
+of the reference's, which this takes out of the comparison.
 """
 
 import argparse
+import contextlib
 import time
 
 import numpy as np
@@ -52,11 +68,16 @@ def main():
     ap.add_argument("--frames", type=int, default=chip_smoke.N_FRAMES)
     ap.add_argument("--device", default="cpu")
     ap.add_argument("--depth-estimator", default=None)
+    ap.add_argument("--polls-like-the-port", action="store_true")
+    ap.add_argument("--log-kf", action="store_true")
+    ap.add_argument("--reference-pyramid", action="store_true")
     args = ap.parse_args()
+    patched = contextlib.nullcontext()
     if args.package == "jax":
         import jax
 
         jax.config.update("jax_platforms", "cpu")
+        from pyslam_tpu.config_parameters import Parameters
         from pyslam_tpu.depth_estimation.depth_estimator import depth_estimator_factory
         from pyslam_tpu.evaluation.metrics import eval_ate
         from pyslam_tpu.features.tracker import FeatureTrackerConfig, feature_tracker_factory
@@ -66,7 +87,13 @@ def main():
         from pyslam_tpu.slam.slam import Slam
         from pyslam_tpu.slam.visual_odometry import VisualOdometry
         kw = {}
+        assert not args.reference_pyramid, "--reference-pyramid is for the port"
+        if args.polls_like_the_port:
+            from tests.torch_parity import reference_polls_like_the_port
+
+            patched = reference_polls_like_the_port()
     else:
+        from pyslam_tpu_torch.config_parameters import Parameters
         from pyslam_tpu_torch.depth_estimation.depth_estimator import depth_estimator_factory
         from pyslam_tpu_torch.evaluation.metrics import eval_ate
         from pyslam_tpu_torch.features.tracker import FeatureTrackerConfig, feature_tracker_factory
@@ -76,6 +103,12 @@ def main():
         from pyslam_tpu_torch.slam.slam import Slam
         from pyslam_tpu_torch.slam.visual_odometry import VisualOdometry
         kw = {"device": args.device}
+        assert not args.polls_like_the_port, "--polls-like-the-port is for the JAX package"
+        if args.reference_pyramid:
+            from tests.torch_parity import port_extracts_from_the_reference_pyramid
+
+            patched = port_extracts_from_the_reference_pyramid()
+    Parameters.kLogKeyFrameDecision = args.log_kf
     if args.sensor == "vo":
         # phase 11's stream: the RGBD rendering's left images, mono camera
         ds = chip_smoke.bench_stream("RGBD")
@@ -122,25 +155,30 @@ def main():
         reset()
 
     slam.reset = counted_reset
-    t0 = time.perf_counter()
-    init_frame = None
-    for i in range(n):
-        n_hist = len(slam.tracking.history.timestamps)
-        slam.track(ds.getImage(i),
-                   img_right=ds.getImageRight(i) if sensor == "STEREO" or stereo_estimator
-                   else None,
-                   depth=ds.getDepth(i) if sensor == "RGBD" else None, frame_id=i,
-                   timestamp=ds.getTimestamp(i))
-        if len(slam.tracking.history.timestamps) == n_hist:
-            print(f"frame {i}: not tracked ({slam.tracking.state.name})", flush=True)
-        elif init_frame is None:
-            init_frame = i
-            print(f"frame {i}: map initialised, {slam.map.num_keyframes()} keyframes, "
-                  f"{slam.map.num_points()} points", flush=True)
-        if i % 10 == 0:
-            print(f"frame {i}: {slam.map.num_keyframes()} keyframes, "
-                  f"{time.perf_counter() - t0:.0f} s", flush=True)
-    slam.finish()
+    with patched:
+        t0 = time.perf_counter()
+        init_frame = None
+        kf_frames = []
+        for i in range(n):
+            n_hist = len(slam.tracking.history.timestamps)
+            slam.track(ds.getImage(i),
+                       img_right=ds.getImageRight(i) if sensor == "STEREO" or stereo_estimator
+                       else None,
+                       depth=ds.getDepth(i) if sensor == "RGBD" else None, frame_id=i,
+                       timestamp=ds.getTimestamp(i))
+            if len(slam.tracking.history.timestamps) == n_hist:
+                print(f"frame {i}: not tracked ({slam.tracking.state.name})", flush=True)
+            elif init_frame is None:
+                init_frame = i
+                print(f"frame {i}: map initialised, {slam.map.num_keyframes()} keyframes, "
+                      f"{slam.map.num_points()} points", flush=True)
+            kf = slam.tracking.kf_ref
+            if kf is not None and kf.id == i:
+                kf_frames.append(i)
+            if i % 10 == 0:
+                print(f"frame {i}: {slam.map.num_keyframes()} keyframes, "
+                      f"{time.perf_counter() - t0:.0f} s", flush=True)
+        slam.finish()
     gt_t = np.asarray([ds.getTimestamp(i) for i in range(n)])
     ts, Twc = slam.tracking.history.final_trajectory(slam.map)
     ate = (float(eval_ate(ts, Twc[:, :3, 3], gt_t, ds.poses[:n, :3, 3], align=True,
@@ -155,6 +193,8 @@ def main():
           f"frame {init_frame}, {len(slam.tracking.history.timestamps)}/{n} tracked, "
           f"{len(resets)} resets, {slam.map.num_keyframes()} keyframes, ATE {ate:.4f} m"
           f"{length} ({time.perf_counter() - t0:.0f} s)", flush=True)
+    if args.log_kf:
+        print(f"keyframes made at frames {kf_frames}", flush=True)
 
 
 if __name__ == "__main__":
